@@ -1,0 +1,3 @@
+from .jax_import import state_dict_from_jax
+
+__all__ = ["state_dict_from_jax"]

@@ -1,0 +1,118 @@
+"""Primer-EZ transformer primitives, batch-first (N, T, C).
+
+Port of ``gesture_diffusion_tpu/models/attention.py`` (forward only): the
+squared-ReLU feed-forward, the kernel-3 depthwise temporal conv on Q/K/V
+whose taps are shared across heads, and the sinusoidal positional
+encoding.  Module and parameter names follow the reference checkpoint
+(``query.0.linear``, ``query.1.conv``, ``feed_forward.layer1``, ...).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    r = F.relu(x)
+    return r * r
+
+
+def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
+    """(max_len, d_model) in fp64 math; sin on even, cos on odd channels."""
+    pos = np.arange(max_len, dtype=np.float64)[:, None]
+    two_i = np.arange(0, d_model, 2, dtype=np.float64)
+    div = np.exp(two_i * -(math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)[:, : d_model // 2]  # odd d_model safe
+    return pe
+
+
+class PositionalEncoding(nn.Module):
+    def __init__(self, d_model: int, max_len: int = 5000):
+        super().__init__()
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoidal_position_encoding(max_len, d_model)),
+            persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pe[: x.shape[1]].to(x.dtype)
+
+
+def depthwise_conv3(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """y[t] = w0*x[t-1] + w1*x[t] + w2*x[t+1] + b over axis 1 of
+    (N, T, H, Dk); w (3, Dk) shared across heads, b (Dk,)."""
+    prev = F.pad(x[:, :-1], (0, 0, 0, 0, 1, 0))
+    nxt = F.pad(x[:, 1:], (0, 0, 0, 0, 0, 1))
+    return prev * w[0] + x * w[1] + nxt * w[2] + b
+
+
+class PrepareForMultiHeadAttention(nn.Module):
+    def __init__(self, d_model: int, heads: int, d_k: int, bias: bool = True):
+        super().__init__()
+        self.heads, self.d_k = heads, d_k
+        self.linear = nn.Linear(d_model, heads * d_k, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.linear(x)
+        return y.view(*y.shape[:-1], self.heads, self.d_k)
+
+
+class SpatialDepthWiseConv(nn.Module):
+    """Kernel-3 depthwise conv over time on (N, T, H, Dk), weights shared
+    across heads; stored as the reference's grouped Conv1d (d_k, 1, 3)."""
+
+    def __init__(self, d_k: int):
+        super().__init__()
+        self.conv = nn.Conv1d(d_k, d_k, 3, padding=1, groups=d_k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight[:, 0, :].t().to(x.dtype)      # (3, d_k)
+        return depthwise_conv3(x, w, self.conv.bias.to(x.dtype))
+
+
+class MultiHeadAttention(nn.Module):
+    """Softmax attention with the Primer depthwise conv on Q/K/V; scores
+    in fp32, masked entries at finfo(float32).min."""
+
+    def __init__(self, heads: int, d_model: int):
+        super().__init__()
+        assert d_model % heads == 0
+        self.heads = heads
+        self.d_k = d_model // heads
+
+        def proj():
+            return nn.Sequential(
+                PrepareForMultiHeadAttention(d_model, heads, self.d_k),
+                SpatialDepthWiseConv(self.d_k))
+
+        self.query, self.key, self.value = proj(), proj(), proj()
+        self.output = nn.Linear(d_model, d_model)
+
+    def forward(self, query, key, value, mask=None) -> torch.Tensor:
+        q, k, v = self.query(query), self.key(key), self.value(value)
+        scale = 1.0 / math.sqrt(self.d_k)
+        scores = torch.einsum("nihd,njhd->nijh", q.float(), k.float()) * scale
+        if mask is not None:
+            scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+        attn = torch.softmax(scores, dim=2)
+        out = torch.einsum("nijh,njhd->nihd", attn.to(v.dtype), v)
+        return self.output(out.reshape(*out.shape[:-2], -1))
+
+
+class FeedForward(nn.Module):
+    """d -> 4d -> d with squared ReLU."""
+
+    def __init__(self, d_model: int, expansion: int = 4):
+        super().__init__()
+        self.layer1 = nn.Linear(d_model, expansion * d_model)
+        self.layer2 = nn.Linear(expansion * d_model, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer2(squared_relu(self.layer1(x)))

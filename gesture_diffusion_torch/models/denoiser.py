@@ -1,0 +1,111 @@
+"""The conditional gesture denoiser (epsilon predictor).
+
+Port of ``gesture_diffusion_tpu/models/denoiser.py`` for the oneway
+decoder and the "s2g_v2" and "default" model types:
+
+  * ``encode_memory(wav)`` — timestep-independent speech conditioning, run
+    once per clip by the samplers;
+  * ``denoise(x_t, t, speech_memory)`` — the per-step work: sinusoidal
+    timestep token + cross-attention decoder;
+  * ``forward(x_t, t, wav)`` composes both.
+
+Model types: "default" memory = [t-token ; low ; mid ; high] along time;
+"s2g_v2" left-zero-pads the three streams to the longest, concatenates
+them on channels and blends them with ``blend_layer``.  Layout (N, T, C).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .decoders import OnewayCrossAttention
+from .speech_encoder import HA2GSpeechEncoder
+
+MODEL_TYPES = ("default", "s2g_v2")
+
+
+def timestep_freqs(dim: int, max_period: float = 10000.0,
+                   device=None) -> torch.Tensor:
+    """(dim//2,) float32 sinusoid frequencies of the timestep embedding,
+    shared with the fused sampler's token table."""
+    half = dim // 2
+    return torch.exp(-math.log(max_period)
+                     * torch.arange(half, dtype=torch.float32, device=device)
+                     / half)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding, (N,) -> (N, dim); cos first, then sin."""
+    args = t.float()[:, None] * timestep_freqs(dim, max_period, t.device)[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class DiffusionStepEncoder(nn.Module):
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.d_model = d_model
+        self.proj = nn.Sequential(nn.Linear(d_model, d_model), nn.SiLU(),
+                                  nn.Linear(d_model, d_model))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return self.proj(timestep_embedding(t, self.d_model))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenoiserConfig:
+    d_pose: int
+    d_model: int = 256
+    heads: int = 8
+    n_layers: int = 4
+    dropout: float = 0.0
+    model_type: str = "s2g_v2"            # default | s2g_v2
+    decoder_type: str = "oneway_cross_attention"
+    pose_seed_len: int = 10
+
+
+class GestureDenoiser(nn.Module):
+    def __init__(self, cfg: DenoiserConfig):
+        super().__init__()
+        if cfg.decoder_type != "oneway_cross_attention":
+            raise ValueError(f"Unsupported decoder type {cfg.decoder_type}")
+        if cfg.model_type not in MODEL_TYPES:
+            raise ValueError(f"Unsupported model_type {cfg.model_type}")
+        self.cfg = cfg
+        self.speech_encoder = HA2GSpeechEncoder(cfg.d_model)
+        self.diffusion_step_encoder = DiffusionStepEncoder(cfg.d_model)
+        self.pose_decoder = OnewayCrossAttention(
+            d_x=cfg.d_pose, d_memory=cfg.d_model, d_model=cfg.d_model,
+            heads=cfg.heads, n_layers=cfg.n_layers, d_out=cfg.d_pose)
+        if cfg.model_type == "s2g_v2":
+            self.blend_layer = nn.Linear(3 * cfg.d_model, cfg.d_model)
+
+    def encode_memory(self, wav: torch.Tensor) -> torch.Tensor:
+        """(N, T_wav) -> (N, T_mem, d_model) speech memory (no t-token)."""
+        low, mid, high = self.speech_encoder(wav)
+        if self.cfg.model_type == "s2g_v2":
+            longest = max(s.shape[1] for s in (low, mid, high))
+            streams = [F.pad(s, (0, 0, longest - s.shape[1], 0))
+                       for s in (low, mid, high)]
+            return self.blend_layer(torch.cat(streams, dim=-1))
+        return torch.cat([low, mid, high], dim=1)
+
+    def denoise(self, x_t: torch.Tensor, t: torch.Tensor,
+                speech_memory: torch.Tensor) -> torch.Tensor:
+        t_token = self.diffusion_step_encoder(t)[:, None]     # (N, 1, D)
+        # promote, never truncate the step embedding to the memory dtype
+        mdt = torch.promote_types(t_token.dtype, speech_memory.dtype)
+        memory = torch.cat([t_token.to(mdt), speech_memory.to(mdt)], dim=1)
+        return self.pose_decoder(x_t, memory)
+
+    def forward(self, x_t: torch.Tensor, t: torch.Tensor,
+                wav: torch.Tensor) -> torch.Tensor:
+        return self.denoise(x_t, t, self.encode_memory(wav))

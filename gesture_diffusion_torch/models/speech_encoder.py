@@ -1,0 +1,148 @@
+"""HA2G hierarchical speech encoder (NCHW inside the conv trunk).
+
+Port of ``gesture_diffusion_tpu/models/speech_encoder.py``:
+
+  mel spectrogram (frozen front-end, ``ops/audio.py``)
+    -> 3x3 conv stem -> SE-ResNet [3,4,6,3] with filters [32,64,128,256]
+    -> taps after layer2/3/4
+    -> per-tap head: (pixel-shuffle to realign time) + valid conv + BN
+       + Linear over the channel-major flattened (channel, freq) axis
+    -> shared Linear 32 -> d_model giving the (low, mid, high) streams.
+
+The mel image is (N, 1, freq, time).  Module names follow the reference
+checkpoint (``wav_encoder.feat_extractor.layer{k}.{b}.conv1``, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.audio import speech_frontend
+
+BN_EPS = 1e-5
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    # flax momentum 0.9 (weight of the old value) == torch momentum 0.1
+    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=0.1)
+
+
+class SELayer(nn.Module):
+    def __init__(self, channels: int, reduction: int = 8):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channels, channels // reduction),
+                                nn.ReLU(),
+                                nn.Linear(channels // reduction, channels),
+                                nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]
+
+
+class SEBasicBlock(nn.Module):
+    """conv-relu-bn / conv-bn-se / +residual / relu (reference order)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = _bn(planes)
+        self.se = SELayer(planes)
+        self.downsample = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+                _bn(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.bn1(F.relu(self.conv1(x)))
+        y = self.se(self.bn2(self.conv2(y)))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+def _stride2(h: int) -> int:
+    """Height after a 3x3, stride-2, pad-1 conv."""
+    return (h - 1) // 2 + 1
+
+
+class SEResNetEncoder(nn.Module):
+    """SE-ResNet-34-ish trunk over the mel image with three temporal taps."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
+                 filters: Sequence[int] = (32, 64, 128, 256),
+                 n_out: int = 32, n_mels: int = 128):
+        super().__init__()
+        self.conv1 = nn.Conv2d(1, filters[0], 3, padding=1)
+        self.bn1 = _bn(filters[0])
+        inplanes = filters[0]
+        for k, (planes, blocks) in enumerate(zip(filters, layers), start=1):
+            stride = 1 if k == 1 else 2
+            stage = []
+            for b in range(blocks):
+                stage.append(SEBasicBlock(inplanes, planes,
+                                          stride if b == 0 else 1))
+                inplanes = planes
+            setattr(self, f"layer{k}", nn.Sequential(*stage))
+        h2 = _stride2(n_mels)
+        h3, h4 = _stride2(h2), _stride2(_stride2(h2))
+        # (tag, conv in = out channels, kernel, pixel-shuffle factor, H in)
+        heads = (("low", filters[1], 2, 1, h2),
+                 ("mid", filters[1] // 2, 3, 2, h3 * 2),
+                 ("high", filters[1] // 4, 3, 4, h4 * 4))
+        self._shuffle = {}
+        for tag, ch, kern, r, h in heads:
+            setattr(self, f"conv_{tag}", nn.Conv2d(ch, ch, kern))
+            setattr(self, f"bn_{tag}", _bn(ch))
+            setattr(self, f"fc_{tag}", nn.Linear(ch * (h - kern + 1), n_out))
+            self._shuffle[tag] = r
+
+    def _head(self, tag: str, x: torch.Tensor) -> torch.Tensor:
+        r = self._shuffle[tag]
+        if r > 1:
+            x = F.pixel_shuffle(x, r)
+        y = getattr(self, f"bn_{tag}")(F.relu(getattr(self, f"conv_{tag}")(x)))
+        # (N, C, H, W) -> (N, W, C*H): channel-major flatten
+        y = y.permute(0, 3, 1, 2)
+        y = y.reshape(y.shape[0], y.shape[1], -1)
+        return getattr(self, f"fc_{tag}")(y)
+
+    def forward(self, mel: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """mel: (N, n_mels, T_spec) -> three (N, T_i, n_out) streams."""
+        x = self.bn1(F.relu(self.conv1(mel[:, None])))
+        x = self.layer1(x)
+        f1 = self.layer2(x)
+        f2 = self.layer3(f1)
+        f3 = self.layer4(f2)
+        return self._head("low", f1), self._head("mid", f2), self._head("high", f3)
+
+
+class _WavEncoder(nn.Module):
+    """Holds the trunk under the reference's ``wav_encoder.feat_extractor``
+    name."""
+
+    def __init__(self):
+        super().__init__()
+        self.feat_extractor = SEResNetEncoder()
+
+
+class HA2GSpeechEncoder(nn.Module):
+    """Waveform -> three (N, T_i, d_model) feature streams."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.wav_encoder = _WavEncoder()
+        self.wav_proj_layer = nn.Linear(32, d_model)
+
+    def forward(self, wav: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        low, mid, high = self.wav_encoder.feat_extractor(speech_frontend(wav))
+        proj = self.wav_proj_layer
+        return proj(low), proj(mid), proj(high)

@@ -1,0 +1,71 @@
+"""Shared setup of the port's parity tests (tests/test_torch_port_*.py).
+
+Both sides run in float32 on the CPU (tests/conftest.py pins JAX matmuls
+to "highest").  Inputs come from numpy with a seed; weights are built by
+the JAX package, moved off their init values (biases, LayerNorm/BN affine,
+BN running statistics), and carried into the port with
+``state_dict_from_jax``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from gesture_diffusion_tpu.models import DenoiserConfig as JaxConfig
+from gesture_diffusion_tpu.models import GestureDenoiser as JaxDenoiser
+from gesture_diffusion_torch.interop import state_dict_from_jax
+from gesture_diffusion_torch.models import DenoiserConfig, GestureDenoiser
+
+# the suite runs under xdist -n 6: one torch thread per worker
+torch.set_num_threads(1)
+
+D_POSE, T, DM, HEADS = 12, 8, 256, 8
+
+
+def seeded_wav(seed: int, n: int = 2, length: int = 8000) -> np.ndarray:
+    return np.random.default_rng(seed).normal(0, 0.3, (n, length)).astype(np.float32)
+
+
+def _perturb(tree, rng):
+    """Biases and affine scales off their (0, 1) init; kernels untouched."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _perturb(v, rng)
+        elif k in ("bias", "mean"):
+            out[k] = v + rng.normal(0, 0.05, v.shape).astype(np.float32)
+        elif k in ("scale", "var"):
+            out[k] = v * rng.uniform(0.8, 1.2, v.shape).astype(np.float32)
+        else:
+            out[k] = v
+    return out
+
+
+def jax_variables(model_type: str = "s2g_v2", n_layers: int = 1,
+                  wav: "np.ndarray | None" = None, seed: int = 0):
+    """(JAX config, numpy variables) of a small denoiser."""
+    cfg = JaxConfig(d_pose=D_POSE, d_model=DM, heads=HEADS, n_layers=n_layers,
+                    model_type=model_type)
+    wav = seeded_wav(seed) if wav is None else wav
+    n = wav.shape[0]
+    variables = JaxDenoiser(cfg).init(
+        jax.random.key(seed), jnp.zeros((n, T, D_POSE)),
+        jnp.zeros((n,), jnp.int32), jnp.asarray(wav), train=False)
+    variables = jax.tree.map(np.asarray, variables)
+    return cfg, _perturb(variables, np.random.default_rng(seed + 100))
+
+
+def port_model(cfg, variables) -> GestureDenoiser:
+    """The port's denoiser on the same weights (strict load)."""
+    model = GestureDenoiser(DenoiserConfig(
+        d_pose=cfg.d_pose, d_model=cfg.d_model, heads=cfg.heads,
+        n_layers=cfg.n_layers, model_type=cfg.model_type))
+    model.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
+    return model.eval()
+
+
+def rel_err(ours, ref) -> float:
+    """max |ours - ref| / max |ref|."""
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-30))

@@ -14,11 +14,15 @@
 // every product, q/k/v, and the FF hidden in chunks.  Products run on the
 // tensor cores through nvcuda::wmma (bf16 operands, f32 accumulation); the
 // A operand (activations) comes from shared memory and the B operand
-// (weights) straight from global memory.  Each warp owns whole 32-column
+// (weights) straight from global memory, one k-step ahead.  The wrapper
+// hands the weights over transposed, (N, K) row-major, so a B fragment is
+// loaded as 32-bit pairs along k (col_major) rather than as scattered 16-bit
+// loads over 16 rows.  Each warp owns whole 32-column
 // strips of an output, so it sees every row of its strip and can run the
 // strip's epilogue itself: bias, the 3-tap depthwise conv over time,
 // squared ReLU, the residual add, or the DDIM update.  Attention is plain
-// f32 FMA, one warp per head, keys spread over lanes.
+// f32 FMA, one warp per head, keys spread over lanes, four queries at a
+// time so that every key and value load feeds four independent chains.
 //
 // Bound on an H100: the ~8.7 MB of bf16 weights (flagship) fit in no SM, so
 // every block re-reads all of them from L2 on every step; the kernel is
@@ -122,13 +126,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// C[rows, N] = A[rows, K] (bf16, shared, row stride lda) x W[K, N] (bf16,
-// global, row stride ldw).  Warp w computes column strips w, w+8, ... over
-// all mt row tiles, stores each strip to its staging area (f32, mt*16 x
-// STRIP) and runs epi(stage, n0, lane) on it.  N % STRIP == 0, K % 16 == 0.
+// C[rows, N] = A[rows, K] (bf16, shared, row stride lda) x W[K, N], with W
+// given transposed: Wt[N, K] (bf16, global, row stride ldk).  Warp w
+// computes column strips w, w+8, ... over all mt row tiles, stores each
+// strip to its staging area (f32, mt*16 x STRIP) and runs
+// epi(stage, n0, lane) on it.  N % STRIP == 0, K % 16 == 0.
 template <class Epi>
 __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
-                                       const bf16* __restrict__ W, int ldw,
+                                       const bf16* __restrict__ Wt, int ldk,
                                        int K, int N, float* stage,
                                        const Epi& epi) {
 #ifdef FUSED_DDIM_SKIP_MMA
@@ -141,12 +146,17 @@ __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
     for (int m = 0; m < MAXMT; ++m)
 #pragma unroll
       for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[m][j], 0.0f);
+    const bf16* wt = Wt + (size_t)n0 * ldk;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[NT], bn[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      wmma::load_matrix_sync(b[j], wt + (size_t)16 * j * ldk, ldk);
 #pragma unroll 2
     for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[NT];
+      const int kn = k0 + 16 < K ? k0 + 16 : k0;   // next k-step's weights
 #pragma unroll
       for (int j = 0; j < NT; ++j)
-        wmma::load_matrix_sync(b[j], W + (size_t)k0 * ldw + n0 + 16 * j, ldw);
+        wmma::load_matrix_sync(bn[j], wt + (size_t)16 * j * ldk + kn, ldk);
 #pragma unroll
       for (int m = 0; m < MAXMT; ++m) {
         if (m < mt) {
@@ -157,6 +167,8 @@ __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
             wmma::mma_sync(acc[m][j], a, b[j], acc[m][j]);
         }
       }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = bn[j];
     }
 #pragma unroll
     for (int m = 0; m < MAXMT; ++m) {
@@ -269,65 +281,96 @@ __device__ void layer_norm(const float* h, int rows, int d, bf16* z, int ldz) {
   }
 }
 
-// o[i, head] = softmax(q_i . K^T * scale) V, one warp per head, lane j owns
-// keys j and j+32; bf16 operands, f32 scores/softmax/accumulation, bf16 P
+// o[i, head] = softmax(q_i . K^T * scale) V, one warp per head, QG queries
+// per pass.  Lane j owns keys j and j+32; bf16 operands, f32 scores,
+// softmax and sums, P rounded to bf16 and parked in this warp's pbuf
+// (QG x 64 floats) for the P.V pass, where lane d owns output dims d, d+32.
+#define QG 4
 __device__ void attention(const bf16* q, int ldq, const bf16* k,
                           const bf16* v, int ldkv, int nq, int nk, int heads,
-                          int dk, float scale, bf16* o, int ldo) {
+                          int dk, float scale, bf16* o, int ldo, float* pbuf) {
 #ifdef FUSED_DDIM_SKIP_ATTN
   return;  // timing breakdown only (tools/fused_ddim_breakdown.py)
 #endif
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool wide = dk > 32;
   for (int hh = warp; hh < heads; hh += NWARPS) {
     const int hd = hh * dk;
-    for (int i = 0; i < nq; ++i) {
-      const __nv_bfloat162* qi =
-          reinterpret_cast<const __nv_bfloat162*>(q + i * ldq + hd);
-      float p[MAXKC];
-      float mx = -INFINITY;
+    for (int i0 = 0; i0 < nq; i0 += QG) {
+      const __nv_bfloat162* qr[QG];
+#pragma unroll
+      for (int g = 0; g < QG; ++g)
+        qr[g] = reinterpret_cast<const __nv_bfloat162*>(
+            q + min(i0 + g, nq - 1) * ldq + hd);
+      float s[QG][MAXKC];
 #pragma unroll
       for (int cc = 0; cc < MAXKC; ++cc) {
         const int j = lane + 32 * cc;
-        p[cc] = -INFINITY;
-        if (j < nk) {
-          const __nv_bfloat162* kj =
-              reinterpret_cast<const __nv_bfloat162*>(k + j * ldkv + hd);
-          float acc = 0.0f;
-          for (int e = 0; e < dk / 2; ++e) {
-            const float2 qf = __bfloat1622float2(qi[e]);
-            const float2 kf = __bfloat1622float2(kj[e]);
-            acc = fmaf(qf.x, kf.x, acc);
-            acc = fmaf(qf.y, kf.y, acc);
+        const bool live = j < nk;
+#pragma unroll
+        for (int g = 0; g < QG; ++g) s[g][cc] = -INFINITY;
+        if (32 * cc >= nk) continue;          // warp-uniform
+        const __nv_bfloat162* kj = reinterpret_cast<const __nv_bfloat162*>(
+            k + (live ? j : 0) * ldkv + hd);
+        float acc[QG];
+#pragma unroll
+        for (int g = 0; g < QG; ++g) acc[g] = 0.0f;
+#pragma unroll 4
+        for (int e = 0; e < dk / 2; ++e) {
+          const float2 kf = __bfloat1622float2(kj[e]);
+#pragma unroll
+          for (int g = 0; g < QG; ++g) {
+            const float2 qf = __bfloat1622float2(qr[g][e]);
+            acc[g] = fmaf(qf.x, kf.x, acc[g]);
+            acc[g] = fmaf(qf.y, kf.y, acc[g]);
           }
-          p[cc] = acc * scale;
         }
-        mx = fmaxf(mx, p[cc]);
+#pragma unroll
+        for (int g = 0; g < QG; ++g) s[g][cc] = live ? acc[g] * scale : -INFINITY;
       }
-      mx = warp_max(mx);
-      float sum = 0.0f;
 #pragma unroll
-      for (int cc = 0; cc < MAXKC; ++cc) {
-        p[cc] = (lane + 32 * cc < nk) ? expf(p[cc] - mx) : 0.0f;
-        sum += p[cc];
+      for (int g = 0; g < QG; ++g) {
+        float mx = s[g][0];
+#pragma unroll
+        for (int cc = 1; cc < MAXKC; ++cc) mx = fmaxf(mx, s[g][cc]);
+        mx = warp_max(mx);
+        float sum = 0.0f;
+#pragma unroll
+        for (int cc = 0; cc < MAXKC; ++cc) {
+          s[g][cc] = (lane + 32 * cc < nk) ? expf(s[g][cc] - mx) : 0.0f;
+          sum += s[g][cc];
+        }
+        const float inv = 1.0f / warp_sum(sum);
+#pragma unroll
+        for (int cc = 0; cc < MAXKC; ++cc)
+          pbuf[g * 32 * MAXKC + lane + 32 * cc] =
+              bf(__float2bfloat16(s[g][cc] * inv));
       }
-      const float inv = 1.0f / warp_sum(sum);
+      __syncwarp();
+      float o0[QG], o1[QG];
 #pragma unroll
-      for (int cc = 0; cc < MAXKC; ++cc)
-        p[cc] = bf(__float2bfloat16(p[cc] * inv));
-      float acc0 = 0.0f, acc1 = 0.0f;   // output dims lane, lane + 32
+      for (int g = 0; g < QG; ++g) o0[g] = o1[g] = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < nk; ++j) {
+        const bf16* vj = v + j * ldkv + hd;
+        const float v0 = bf(vj[lane]);
+        const float v1 = wide && lane + 32 < dk ? bf(vj[lane + 32]) : 0.0f;
 #pragma unroll
-      for (int cc = 0; cc < MAXKC; ++cc) {
-        for (int jj = 0; jj < 32; ++jj) {
-          const int j = 32 * cc + jj;
-          if (j >= nk) break;
-          const float pj = __shfl_sync(0xffffffffu, p[cc], jj);
-          const bf16* vj = v + j * ldkv + hd;
-          if (lane < dk) acc0 = fmaf(pj, bf(vj[lane]), acc0);
-          if (lane + 32 < dk) acc1 = fmaf(pj, bf(vj[lane + 32]), acc1);
+        for (int g = 0; g < QG; ++g) {
+          const float pj = pbuf[g * 32 * MAXKC + j];
+          o0[g] = fmaf(pj, v0, o0[g]);
+          if (wide) o1[g] = fmaf(pj, v1, o1[g]);
         }
       }
-      if (lane < dk) o[i * ldo + hd + lane] = __float2bfloat16(acc0);
-      if (lane + 32 < dk) o[i * ldo + hd + lane + 32] = __float2bfloat16(acc1);
+#pragma unroll
+      for (int g = 0; g < QG; ++g) {
+        if (i0 + g < nq) {
+          if (lane < dk) o[(i0 + g) * ldo + hd + lane] = __float2bfloat16(o0[g]);
+          if (lane + 32 < dk)
+            o[(i0 + g) * ldo + hd + lane + 32] = __float2bfloat16(o1[g]);
+        }
+      }
+      __syncwarp();   // pbuf is rewritten by the next pass
     }
   }
 }
@@ -368,7 +411,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
     for (int i = tid; i < T * DP; i += NTHREADS)
       za[(i / DP) * L.lda + i % DP] = __float2bfloat16(xs[i]);
     __syncthreads();
-    matmul(za, L.lda, L.mtx, p.w_embx, D, DP, D, stage,
+    matmul(za, L.lda, L.mtx, p.w_embx, DP, DP, D, stage,
            EpiEmbX{h, p.b_embx, p.pe_x, T, D});
     __syncthreads();
 
@@ -377,13 +420,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       // self-attention: merged QKV + dconv -> attention -> out-proj
       layer_norm(h, T, D, za, L.lda);
       __syncthreads();
-      matmul(za, L.lda, L.mtx, p.self_wqkv + l * 3 * dd, 3 * D, D, 3 * D, stage,
+      matmul(za, L.lda, L.mtx, p.self_wqkv + l * 3 * dd, D, D, 3 * D, stage,
              EpiDconv{big, L.ldqkv, p.self_bqkv + l * 3 * D,
                       p.self_dconv + l * 9 * D, p.self_dbias + l * 3 * D,
                       3 * D, T});
       __syncthreads();
       attention(big, L.ldqkv, big + D, big + 2 * D, L.ldqkv, T, T, p.heads, dk,
-                scale, za, L.lda);
+                scale, za, L.lda, stage);
       __syncthreads();
       matmul(za, L.lda, L.mtx, p.self_wo + l * dd, D, D, D, stage,
              EpiResid{h, p.self_bo + l * D, T, D});
@@ -395,13 +438,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       matmul(za, L.lda, L.mtx, p.cross_wq + l * dd, D, D, D, stage,
              EpiDconv{big, L.ldcq, p.cross_bq + l * D, p.cross_dq + l * 3 * D,
                       p.cross_dqb + l * D, D, T});
-      matmul(ma, L.ldm, L.mtm, p.cross_wkv + l * 2 * dd, 2 * D, D, 2 * D, stage,
+      matmul(ma, L.ldm, L.mtm, p.cross_wkv + l * 2 * dd, D, D, 2 * D, stage,
              EpiDconv{ckv, L.ldckv, p.cross_bkv + l * 2 * D,
                       p.cross_dkv + l * 6 * D, p.cross_dkvb + l * 2 * D, 2 * D,
                       NM});
       __syncthreads();
       attention(big, L.ldcq, ckv, ckv + D, L.ldckv, T, NM, p.heads, dk, scale,
-                za, L.lda);
+                za, L.lda, stage);
       __syncthreads();
       matmul(za, L.lda, L.mtx, p.cross_wo + l * dd, D, D, D, stage,
              EpiResid{h, p.cross_bo + l * D, T, D});
@@ -411,10 +454,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       layer_norm(h, T, D, za, L.lda);
       __syncthreads();
       for (int c0 = 0; c0 < F; c0 += FC) {
-        matmul(za, L.lda, L.mtx, p.ff_w1 + (size_t)l * D * F + c0, F, D, FC,
+        matmul(za, L.lda, L.mtx, p.ff_w1 + ((size_t)l * F + c0) * D, D, D, FC,
                stage, EpiRelu2{big, L.ldf, p.ff_b1 + (size_t)l * F + c0, T});
         __syncthreads();
-        matmul(big, L.ldf, L.mtx, p.ff_w2 + ((size_t)l * F + c0) * D, D, FC, D,
+        matmul(big, L.ldf, L.mtx, p.ff_w2 + (size_t)l * D * F + c0, F, FC, D,
                stage, EpiResid{h, c0 == 0 ? p.ff_b2 + l * D : nullptr, T, D});
         __syncthreads();
       }
@@ -423,7 +466,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
     layer_norm(h, T, D, za, L.lda);
     __syncthreads();
     const float* cf = p.coefs + (size_t)s * 4;
-    matmul(za, L.lda, L.mtx, p.w_out, DP, D, DP, stage,
+    matmul(za, L.lda, L.mtx, p.w_out, D, D, DP, stage,
            EpiUpdate{xs, p.b_out, ba, bb, cf[0], cf[1], cf[2], cf[3], T, DP});
     __syncthreads();
   }

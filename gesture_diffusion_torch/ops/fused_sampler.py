@@ -419,6 +419,10 @@ def _library():
     return _LIB
 
 
+def _transposed(w: torch.Tensor) -> torch.Tensor:
+    return w.transpose(-1, -2).contiguous()
+
+
 def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
                      n_layers, heads, num_steps, compute_dtype):
     global launches
@@ -443,12 +447,17 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
     coef4 = coefs[:, :4].to(dev, torch.float32).contiguous()
     out = torch.empty_like(x_T)
     p = packed
+    # the kernel reads product weights transposed, (N, K) row-major, so its
+    # B fragments are 32-bit loads along k; ~9 MB copied per call
+    kt = _transposed
     tensors = [x_T, out, mem, tok, coef4, blend_a, blend_b,
-               p.w_embx, p.b_embx, p.pe_x,
-               p.self_wqkv, p.self_bqkv, p.self_dconv, p.self_dbias, p.self_wo, p.self_bo,
-               p.cross_wq, p.cross_bq, p.cross_wkv, p.cross_bkv, p.cross_dq,
-               p.cross_dqb, p.cross_dkv, p.cross_dkvb, p.cross_wo, p.cross_bo,
-               p.ff_w1, p.ff_b1, p.ff_w2, p.ff_b2, p.w_out, p.b_out]
+               kt(p.w_embx), p.b_embx, p.pe_x,
+               kt(p.self_wqkv), p.self_bqkv, p.self_dconv, p.self_dbias,
+               kt(p.self_wo), p.self_bo,
+               kt(p.cross_wq), p.cross_bq, kt(p.cross_wkv), p.cross_bkv,
+               p.cross_dq, p.cross_dqb, p.cross_dkv, p.cross_dkvb,
+               kt(p.cross_wo), p.cross_bo,
+               kt(p.ff_w1), p.ff_b1, kt(p.ff_w2), p.ff_b2, kt(p.w_out), p.b_out]
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if a is None else a.data_ptr() for a in tensors])
     dims = (ctypes.c_int * 10)(n, t, mem.shape[1], p.w_emm.shape[0], dp,

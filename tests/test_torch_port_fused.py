@@ -3,6 +3,8 @@ the JAX Pallas kernel (interpret mode, float32), plus the wrapper's
 contract.  The CUDA kernel itself is held against the plain version on
 the card (the ``cuda``-marked test here, and chip_smoke.py)."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,6 +145,48 @@ def test_kernel_plan_limits(packs):
     assert ok == fc
     with pytest.raises(ValueError, match="at most"):
         fs._kernel_plan(tp, torch.zeros(1, 40, DP), torch.zeros(1, 92, DM), 8)
+
+
+class _StubLibrary:
+    """Records what the CUDA wrapper hands the C launcher."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_ddim_launch(self, ptrs, n_ptrs, dims, n_dims, stream):
+        self.calls.append((list(ptrs)[:n_ptrs], list(dims)[:n_dims]))
+        return 0
+
+
+def test_cuda_wrapper_marshalling(packs, monkeypatch):
+    """The wrapper's checks, pointer list and dims, with the library
+    stubbed (the launch itself needs the card)."""
+    p = fs.pack_oneway_denoiser(packs[0], D_POSE, T)
+    _, tmap = make_diffusion("linear", 100, "ddim10")
+    x, mem, a, b = (torch.from_numpy(v) for v in _inputs(3, 50, "ramp"))
+    stub = _StubLibrary()
+    monkeypatch.setattr(fs, "_library", lambda: stub)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    before = fs.launches
+    out = fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
+                              N_LAYERS, 8, 10, torch.bfloat16)
+    assert fs.launches == before + 1 and out.shape == x.shape
+    (ptrs, dims), = stub.calls
+    assert len(ptrs) == 32 and ptrs[0] == x.data_ptr() and ptrs[1] == out.data_ptr()
+    assert ptrs[5] == a.data_ptr() and ptrs[6] == b.data_ptr()
+    assert dims == [3, T, 16, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM]
+    with pytest.raises(ValueError, match="bfloat16 operands"):
+        fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
+                            N_LAYERS, 8, 10, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs._fused_ddim_cuda(p, x.transpose(1, 2).contiguous().transpose(1, 2),
+                            mem, tmap, torch.zeros(10, 4), a, b, N_LAYERS, 8,
+                            10, torch.bfloat16)
+    f32 = fs.pack_oneway_denoiser(packs[0], D_POSE, T, weight_dtype=torch.float32)
+    with pytest.raises(ValueError, match="packed.w_embx"):
+        fs._fused_ddim_cuda(f32, x, mem, tmap, torch.zeros(10, 4), a, b,
+                            N_LAYERS, 8, 10, torch.bfloat16)
 
 
 @pytest.mark.cuda

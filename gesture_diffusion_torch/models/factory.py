@@ -50,7 +50,11 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def denoiser_config(d_pose: int, model_params) -> DenoiserConfig:
+def build_model(d_pose: int, model_params, device=None,
+                generator: Optional[torch.Generator] = None) -> GestureDenoiser:
+    """Eval-mode ``GestureDenoiser`` on ``device`` (the card by default).
+    With ``generator`` the weights are drawn from it (``init_random_``)."""
+    dev = resolve_device(device)
     decoder_params = model_params.get("Decoder")
     if decoder_params.type not in SUPPORTED_DECODERS:
         raise ValueError(f"Unsupported decoder type {decoder_params.type}")
@@ -58,7 +62,7 @@ def denoiser_config(d_pose: int, model_params) -> DenoiserConfig:
     if encoder_params is not None and encoder_params.get("type", "ha2g") != "ha2g":
         raise ValueError(f"Unsupported encoder type {encoder_params.type}")
     gen = model_params.get("Generate")
-    return DenoiserConfig(
+    model = GestureDenoiser(DenoiserConfig(
         d_pose=d_pose,
         d_model=model_params.d_model,
         heads=decoder_params.get("heads", decoder_params.get("num_heads", 8)),
@@ -67,15 +71,7 @@ def denoiser_config(d_pose: int, model_params) -> DenoiserConfig:
         model_type=model_params.get("type", "s2g_v2"),
         decoder_type=decoder_params.type,
         pose_seed_len=(gen.get("pose_seed_len", 10) if gen is not None else 10),
-    )
-
-
-def build_model(d_pose: int, model_params, device=None,
-                generator: Optional[torch.Generator] = None) -> GestureDenoiser:
-    """Eval-mode ``GestureDenoiser`` on ``device`` (the card by default).
-    With ``generator`` the weights are drawn from it (``init_random_``)."""
-    dev = resolve_device(device)
-    model = GestureDenoiser(denoiser_config(d_pose, model_params))
+    ))
     if generator is not None:
         init_random_(model, generator)
     return model.to(dev).eval()

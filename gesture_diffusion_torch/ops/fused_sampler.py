@@ -52,9 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.attention import sinusoidal_position_encoding
+from ..models.decoders import LN_EPS
 from ..models.denoiser import timestep_freqs
-
-LN_EPS = 1e-6
 
 # kernel limits (csrc/fused_ddim.cu): one block of NWARPS warps per clip,
 # epilogue strips of 32 columns, at most 4 row tiles of 16 per side
@@ -278,11 +277,6 @@ def _attention(q, k, v, heads: int, cd) -> torch.Tensor:
     return o.transpose(1, 2).reshape(n, tq, d)
 
 
-def _update_scalars(coefs: torch.Tensor) -> np.ndarray:
-    """Host copy of the coefficient table, float32 like the kernel's."""
-    return coefs[:, :4].detach().cpu().numpy().astype(np.float32)
-
-
 @torch.no_grad()
 def fused_ddim_sample_plain(packed: PackedDenoiser, x_T, mem_rows, tmap, coefs,
                             blend_a, blend_b, n_layers: int, heads: int,
@@ -296,7 +290,8 @@ def fused_ddim_sample_plain(packed: PackedDenoiser, x_T, mem_rows, tmap, coefs,
     p, cd = packed, compute_dtype
     d_model = p.w_emm.shape[0]
     tok = step_tokens(p, tmap, cd)
-    c = _update_scalars(coefs)
+    # host copy of the coefficients; scalar products in float32, as the kernel's
+    c = coefs[:, :4].detach().cpu().numpy().astype(np.float32)
     pe_x = p.pe_x[: x_T.shape[1]].float()
     mem = mem_rows.float().clone()
     x = x_T.float()
@@ -462,6 +457,10 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
         *[None if a is None else a.data_ptr() for a in tensors])
     dims = (ctypes.c_int * 10)(n, t, mem.shape[1], p.w_emm.shape[0], dp,
                                p.ff_w1.shape[2], n_layers, heads, num_steps, fc)
+    # the launch is asynchronous: the temporaries above (mem, tok, coef4,
+    # the transposed weights) may be freed on return because the caching
+    # allocator only reuses their blocks for work queued after the kernel
+    # on this same stream
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().fused_ddim_launch(ptrs, len(tensors), dims, len(dims),
                                       ctypes.c_void_p(stream))

@@ -1,11 +1,10 @@
 """Port vs JAX: the fused sampler's packing and its plain version against
 the JAX Pallas kernel (interpret mode, float32), plus the wrapper's
 contract.  The CUDA kernel itself is held against the plain version on
-the card (the ``cuda``-marked test here, and chip_smoke.py)."""
+the card by tests/test_torch_port_cuda.py and chip_smoke.py."""
 
 import types
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,25 +186,3 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
     with pytest.raises(ValueError, match="packed.w_embx"):
         fs._fused_ddim_cuda(f32, x, mem, tmap, torch.zeros(10, 4), a, b,
                             N_LAYERS, 8, 10, torch.bfloat16)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card(packs):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    model = packs[0].cuda()
-    p = fs.pack_oneway_denoiser(model, D_POSE, T)
-    sp, tmap = make_diffusion("linear", 100, "ddim10")
-    x, mem, a, b = (None if v is None else torch.from_numpy(v).cuda()
-                    for v in _inputs(3, 30, "ramp"))
-    args = (p, x, mem, tmap.cuda(), fs.ddim_coefficients(sp).cuda(), a, b,
-            N_LAYERS, 8, 10)
-    before = fs.launches
-    k = fs.fused_ddim_sample(*args)
-    torch.cuda.synchronize()
-    assert fs.launches == before + 1
-    ref = fs.fused_ddim_sample_plain(*args)
-    # bf16 operands on both sides, f32 sums in another order: rounding
-    # flips cascade to the bf16 level (chip_smoke.py measures the floor)
-    assert rel_err(k.cpu().numpy(), ref.cpu().numpy()) < 5e-3

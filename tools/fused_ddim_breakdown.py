@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the fused DDIM kernel's time goes, on one NVIDIA GPU.
 
-Builds a kernel source four times, with the ``FUSED_DDIM_SKIP_ATTN`` and
-``FUSED_DDIM_SKIP_MMA`` hooks off or on (attention skipped, matmul k-loops
-skipped, both).  Each build then runs the flagship shapes through the
-package's wrapper: beat-ours, T 40, n_mem 32, seeded random weights, the
+Builds a kernel source once per variant of its timing hooks: all on
+("all"), attention skipped, matmul k-loops skipped, both skipped, and the
+k-loops with the activation (A) or weight (B) fragments held at k-step 0,
+which takes that operand's loads out of the loop.  Each build then runs
+the flagship shapes through the package's wrapper: beat-ours, T 40, n_mem 32, seeded random weights, the
 first ``--steps`` steps of the 1000-step schedule.  It prints device
 microseconds per step (CUDA events) for batches 1 and 64.  A skipped build
 computes garbage; only its time is read.
@@ -37,7 +38,9 @@ from gesture_diffusion_torch.utils import JsonConfig  # noqa: E402
 
 VARIANTS = (("all", ()), ("no_attn", ("-DFUSED_DDIM_SKIP_ATTN",)),
             ("no_mma", ("-DFUSED_DDIM_SKIP_MMA",)),
-            ("neither", ("-DFUSED_DDIM_SKIP_ATTN", "-DFUSED_DDIM_SKIP_MMA")))
+            ("neither", ("-DFUSED_DDIM_SKIP_ATTN", "-DFUSED_DDIM_SKIP_MMA")),
+            ("fixed_a", ("-DFUSED_DDIM_FIXED_A",)),
+            ("fixed_b", ("-DFUSED_DDIM_FIXED_B",)))
 
 
 def build(src: str, tag: str, flags) -> ctypes.CDLL:

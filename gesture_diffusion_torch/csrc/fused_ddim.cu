@@ -55,7 +55,6 @@ typedef __nv_bfloat16 bf16;
 #define STRIP (16 * NT)      // columns per warp strip
 #define MAXMT 4              // row tiles of 16: at most 64 rows per side
 #define MAXKC 2              // key chunks of 32: at most 64 keys
-#define KSTAGES 4            // ring of B fragments: KSTAGES-1 k-steps in flight
 #define SMEM_LIMIT 232448
 #define LN_EPS 1e-6f
 
@@ -132,7 +131,7 @@ __device__ __forceinline__ float warp_max(float v) {
 // given transposed: Wt[N, K] (bf16, global, row stride ldk).  Warp w
 // computes column strips w, w+8, ... over all mt row tiles, stores each
 // strip to its staging area (f32, mt*16 x STRIP) and runs
-// epi(stage, n0, lane) on it.  N % STRIP == 0, K % (16 * KSTAGES) == 0.
+// epi(stage, n0, lane) on it.  N % STRIP == 0, K % 16 == 0.
 template <class Epi>
 __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
                                        const bf16* __restrict__ Wt, int ldk,
@@ -162,37 +161,28 @@ __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
 #pragma unroll
       for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[m][j], 0.0f);
     const bf16* wt = Wt + (size_t)n0 * ldk;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[KSTAGES][NT];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[NT], bn[NT];
 #pragma unroll
-    for (int s = 0; s < KSTAGES - 1; ++s) {
-      if (16 * s < K) {
+    for (int j = 0; j < NT; ++j)
+      wmma::load_matrix_sync(b[j], wt + (size_t)16 * j * ldk, ldk);
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      const int kn = k0 + 16 < K ? k0 + 16 : k0;   // next k-step's weights
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          wmma::load_matrix_sync(b[s][j], wt + (size_t)16 * j * ldk + 16 * s, ldk);
-      }
-    }
-    for (int k0 = 0; k0 < K; k0 += 16 * KSTAGES) {
+      for (int j = 0; j < NT; ++j)
+        wmma::load_matrix_sync(bn[j], wt + (size_t)16 * j * ldk + KB(kn), ldk);
 #pragma unroll
-      for (int s = 0; s < KSTAGES; ++s) {
-        const int kc = k0 + 16 * s;                   // this k-step
-        const int kp = kc + 16 * (KSTAGES - 1);       // the one to fetch
-        if (kp < K) {
+      for (int m = 0; m < MAXMT; ++m) {
+        if (m < mt) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::load_matrix_sync(a, A + (size_t)16 * m * lda + KA(k0), lda);
 #pragma unroll
           for (int j = 0; j < NT; ++j)
-            wmma::load_matrix_sync(b[(s + KSTAGES - 1) % KSTAGES][j],
-                                   wt + (size_t)16 * j * ldk + KB(kp), ldk);
-        }
-#pragma unroll
-        for (int m = 0; m < MAXMT; ++m) {
-          if (m < mt) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, A + (size_t)16 * m * lda + KA(kc), lda);
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-              wmma::mma_sync(acc[m][j], a, b[s][j], acc[m][j]);
-          }
+            wmma::mma_sync(acc[m][j], a, b[j], acc[m][j]);
         }
       }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = bn[j];
     }
 #pragma unroll
     for (int m = 0; m < MAXMT; ++m) {
@@ -352,36 +342,19 @@ __device__ void attention(const bf16* q, int ldq, const bf16* k,
 #pragma unroll
         for (int g = 0; g < QG; ++g) s[g][cc] = live ? acc[g] * scale : -INFINITY;
       }
-      // the QG softmaxes reduce in one shuffle loop (independent chains)
-      float mx[QG], sum[QG];
 #pragma unroll
       for (int g = 0; g < QG; ++g) {
-        mx[g] = s[g][0];
+        float mx = s[g][0];
 #pragma unroll
-        for (int cc = 1; cc < MAXKC; ++cc) mx[g] = fmaxf(mx[g], s[g][cc]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int g = 0; g < QG; ++g)
-          mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
-#pragma unroll
-      for (int g = 0; g < QG; ++g) {
-        sum[g] = 0.0f;
+        for (int cc = 1; cc < MAXKC; ++cc) mx = fmaxf(mx, s[g][cc]);
+        mx = warp_max(mx);
+        float sum = 0.0f;
 #pragma unroll
         for (int cc = 0; cc < MAXKC; ++cc) {
-          s[g][cc] = (lane + 32 * cc < nk) ? expf(s[g][cc] - mx[g]) : 0.0f;
-          sum[g] += s[g][cc];
+          s[g][cc] = (lane + 32 * cc < nk) ? expf(s[g][cc] - mx) : 0.0f;
+          sum += s[g][cc];
         }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int g = 0; g < QG; ++g)
-          sum[g] += __shfl_xor_sync(0xffffffffu, sum[g], off);
-#pragma unroll
-      for (int g = 0; g < QG; ++g) {
-        const float inv = 1.0f / sum[g];
+        const float inv = 1.0f / warp_sum(sum);
 #pragma unroll
         for (int cc = 0; cc < MAXKC; ++cc)
           pbuf[g * 32 * MAXKC + lane + 32 * cc] =
@@ -548,9 +521,8 @@ extern "C" int fused_ddim_launch(void** ptrs, int n_ptrs, const int* dims,
   const int dk = p.heads > 0 ? p.d / p.heads : 0;
   if (p.n < 1 || p.t < 1 || p.t > 16 * MAXMT || p.nm < 2 ||
       p.nm > 16 * MAXMT || p.nm > 32 * MAXKC || p.t > 32 * MAXKC ||
-      p.heads < 1 || p.d % p.heads || dk % 2 || dk > 64 ||
-      p.d % (16 * KSTAGES) || p.dp % (16 * KSTAGES) || p.fc % (16 * KSTAGES) ||
-      p.f % p.fc ||
+      p.heads < 1 || p.d % p.heads || dk % 2 || dk > 64 || p.d % STRIP ||
+      p.dp % STRIP || p.fc % STRIP || p.fc < STRIP || p.f % p.fc ||
       p.steps < 1 || p.layers < 1)
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(p.t, p.nm, p.d, p.dp, p.fc);

@@ -1,43 +1,75 @@
-// Fused DDIM sampler for Hopper (sm_90a): the whole reverse process of the
-// oneway cross-attention denoiser in one launch.
+// Fused diffusion sampler for Hopper (sm_90a): the whole reverse process of
+// the oneway cross-attention denoiser in one launch.
 //
 // Replaces the TPU kernel gesture_diffusion_tpu/ops/fused_sampler.py,
-// fused_ddim_sample / _make_kernel (its pallas_call), for the DDIM (eta=0)
-// identity-blend and x0-blend variants.  It computes that kernel's
-// function, not its block structure: the TPU's clip packing and 8-row
-// padding are not needed here, windows and memories are taken at their
-// real lengths: up to 64 rows each, as far as the shared-memory plan fits
-// (d_model 256: T <= 45 at n_mem 32, n_mem <= 48 at T 40).
+// fused_ddim_sample / _make_kernel (its pallas_call), in every variant:
+//   * DDIM (eta=0) with the identity blend or the x0 blend;
+//   * ancestral DDPM (stochastic), with either blend, its noise drawn in
+//     the update epilogue from Philox4x32-10 and Box-Muller;
+//   * x_add, the inpaint model type's loop-invariant conditioning, added to
+//     the state where it is rounded to the operand of emb_x;
+//   * windows and memories of any length up to 64 and 128 rows.
+// It computes that kernel's function, not its block structure: the TPU's
+// clip packing and 8-row padding are not needed here.  Rows outside
+// [0, T) and [0, n_mem) give zero to the dconv and nothing to a softmax.
 //
 // Design: one thread block of 8 warps per clip, a loop over the S steps
-// inside the block.  Everything the clip produces lives in shared memory:
-// the state x (f32), the residual stream h (f32), the bf16 operand rows of
-// every product, q/k/v, and the FF hidden in chunks.  Products run on the
-// tensor cores through nvcuda::wmma (bf16 operands, f32 accumulation); the
-// A operand (activations) comes from shared memory and the B operand
-// (weights) straight from global memory, one k-step ahead.  The wrapper
-// hands the weights over transposed, (N, K) row-major, so a B fragment is
-// loaded as 32-bit pairs along k (col_major) rather than as scattered 16-bit
-// loads over 16 rows.  Each warp owns whole 32-column
-// strips of an output, so it sees every row of its strip and can run the
-// strip's epilogue itself: bias, the 3-tap depthwise conv over time,
-// squared ReLU, the residual add, or the DDIM update.  Attention is plain
-// f32 FMA, one warp per head, keys spread over lanes, four queries at a
-// time so that every key and value load feeds four independent chains.
+// inside the block.  What a clip produces within a step lives in shared
+// memory: the residual stream h (f32), the bf16 operand rows of every
+// product, q/k/v of self-attention, the cross queries, and the FF hidden in
+// chunks.  Products run on the tensor cores through nvcuda::wmma (bf16
+// operands, f32 accumulation); the A operand (activations) comes from
+// shared memory and the B operand (weights) straight from global memory,
+// one k-step ahead.  The wrapper hands the weights over transposed, (N, K)
+// row-major, so a B fragment is loaded as 32-bit pairs along k.  Each warp
+// owns whole 32-column strips of an output, so it sees every row of its
+// strip and runs the strip's epilogue itself: bias, the 3-tap depthwise
+// conv over time, squared ReLU, the residual add, or the sampler's update.
+// Attention runs on the tensor cores too, one warp per head and 16 queries
+// per pass: S = Q K^T into the warp's staging area, an f32 softmax over each
+// row there, P rounded to bf16 in place, then O = P V.
+//
+// Memory design (the memory K and V are hoisted out of the step loop): only
+// memory rows 0 and 1 change from step to step: row 0 is the timestep
+// token, and row 1 sees it through the dconv.  So before the step loop the
+// block computes every layer's dconv'd memory K and V once, into a per-clip
+// scratch in global memory that the wrapper allocates (L x n_mem x 2D
+// bf16; it stays in L2), and per step it recomputes rows 0 and 1 only, from
+// a 16-row operand tile [token; row 1; row 2].  Cross-attention loads its K
+// and V fragments straight from that scratch (row-major, K beside V).  The
+// memory rows therefore take no shared memory, whatever n_mem is, and a
+// 16-query pass holds the scores of all (up to 128) keys at once (no running
+// softmax).  The hoisted values are the ones the in-loop product gave: same
+// operands, same f32 dconv, same rounding to bf16.  One block owns one clip,
+// so __syncthreads() orders the scratch writes before the reads; the
+// wrapper hands the scratch over zeroed, so its pad rows are finite.
+// The state x lives in the output buffer (global, f32), read and written
+// once per step.  Where a window is too long for full-strip staging
+// (T > 48 at d_model 256), a warp stages its strip in two 16-column halves.
 //
 // Bound on an H100: the ~8.7 MB of bf16 weights (flagship) fit in no SM, so
 // every block re-reads all of them from L2 on every step; the kernel is
-// bound by that weight stream (batch 1: one SM's L2 bandwidth; batch 64:
-// 64 blocks sharing L2).  Keeping all activations on chip makes the weight
-// stream the only global traffic.  Spreading one clip's weights over many
-// SMs, or several clips over one block, is later work.
+// bound by the matmul k-loops on few rows (weight stream and MMA latency,
+// about half of a step), then by the softmax and staging of the attention
+// passes: 8 warps on one SM per clip hide little latency.  Spreading one
+// clip's weights over many SMs, or several clips over one block, is later
+// work.
 //
 // Numerics (shared with fused_ddim_sample_plain): product operands are
 // rounded to bf16, everything else is f32: h, LayerNorm (normalise only,
 // eps 1e-6; its affine is folded into the next projection at pack time),
-// softmax, biases, dconv, the state x and eps.
+// softmax, biases, dconv, the state x, eps and the noise z.
 //
-// C interface (ctypes): fused_ddim_launch(ptrs, 32, dims, 10, stream)
+// Noise (stochastic): z for element (clip, row r, lane n) of step s is
+// Box-Muller of two words of Philox4x32-10 with key = the 64-bit seed (low
+// word, high word) and counter = ((r / 2) * Dp + n, s, clip, 0): words 0, 1
+// serve the even row of the pair, words 2, 3 the odd one.  u = top 23 bits
+// / 2^23, z = sqrt(-2 log(max(u1, 1e-12))) cos(2 pi u2).
+//
+// The seed is read from device memory, so a caller that drew it on the
+// card hands it over without a host round trip.
+//
+// C interface (ctypes): fused_ddim_launch(ptrs, 35, dims, 12, stream)
 // returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
@@ -53,15 +85,20 @@ typedef __nv_bfloat16 bf16;
 #define NTHREADS (NWARPS * 32)
 #define NT 2                 // 16-column tiles per warp strip
 #define STRIP (16 * NT)      // columns per warp strip
-#define MAXMT 4              // row tiles of 16: at most 64 rows per side
-#define MAXKC 2              // key chunks of 32: at most 64 keys
+#define MAXMT 4              // row tiles of 16: windows of at most 64 rows
+#define MAXKC 4              // key chunks of 32: at most 128 memory rows
+#define MAXDK 64             // head width: a multiple of 16 up to this
+#define SMR 4                // softmax rows in flight per warp
 #define SMEM_LIMIT 232448
 #define LN_EPS 1e-6f
+#define N_PTRS 35
+#define N_DIMS 12
 
 struct Params {
   const float* x_T;  float* out;
   const bf16* mem;   const bf16* tok;  const float* coefs;
-  const float* blend_a;  const float* blend_b;
+  const float* blend_a;  const float* blend_b;  const float* x_add;
+  bf16* kv;  const unsigned long long* seed;
   const bf16* w_embx;  const bf16* b_embx;  const float* pe_x;
   const bf16* self_wqkv;  const bf16* self_bqkv;  const bf16* self_dconv;
   const bf16* self_dbias; const bf16* self_wo;    const bf16* self_bo;
@@ -71,43 +108,46 @@ struct Params {
   const bf16* cross_bo;
   const bf16* ff_w1;  const bf16* ff_b1;  const bf16* ff_w2;  const bf16* ff_b2;
   const bf16* w_out;  const float* b_out;
-  int n, t, nm, d, dp, f, layers, heads, steps, fc;
+  int n, t, nm, d, dp, f, layers, heads, steps, fc, half, stochastic;
 };
 
 // Shared-memory plan (bytes); mirrored by ops/fused_sampler.py::smem_bytes.
 struct Layout {
-  int xs, h, za, ma, big, ckv, stage, total;   // byte offsets
-  int lda, ldm, ldqkv, ldcq, ldckv, ldf;       // row strides (elements)
-  int mtx, mtm;                                // row tiles per side
+  int h, za, big, ma, stage, total;    // byte offsets
+  int lda, ldm, ldqkv, ldcq, ldf;      // row strides (elements)
+  int mtx, sw, stage_warp;             // row tiles, staged columns, floats
 };
 
 __host__ __device__ inline int align128(int b) { return (b + 127) & ~127; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
-__host__ __device__ inline Layout make_layout(int t, int nm, int d, int dp,
-                                              int fc) {
+__host__ __device__ inline Layout make_layout(int t, int d, int dp, int fc,
+                                              int half) {
   Layout L;
   L.mtx = (t + 15) / 16;
-  L.mtm = (nm + 15) / 16;
+  L.sw = half ? STRIP / 2 : STRIP;
   L.lda = imax(d, dp) + 8;   // +8 keeps wmma row loads off one bank
   L.ldm = d + 8;
-  L.ldqkv = 3 * d + 2;       // odd word stride: per-lane key rows hit
-  L.ldcq = d + 2;            // distinct banks in the score loop
-  L.ldckv = 2 * d + 2;
+  L.ldqkv = 3 * d + 8;
+  L.ldcq = d + 8;
   L.ldf = fc + 8;
   int off = 0;
-  L.xs = off;  off += align128(t * dp * 4);
   L.h = off;   off += align128(t * d * 4);
   L.za = off;  off += align128(16 * L.mtx * L.lda * 2);
-  L.ma = off;  off += align128(16 * L.mtm * L.ldm * 2);
-  int cq_bytes = align128(t * L.ldcq * 2);
-  int big = imax(imax(t * L.ldqkv * 2, cq_bytes + nm * L.ldckv * 2),
-                 16 * L.mtx * L.ldf * 2);
+  // one area for: self q/k/v; cross q plus the 16-row memory tile; an FF
+  // hidden chunk; a chunk of memory rows before the step loop
+  // (whole row tiles: attention loads 16-row fragments)
+  const int cq_bytes = align128(t * L.ldcq * 2);
+  const int big = imax(imax(16 * L.mtx * L.ldqkv * 2, cq_bytes + 16 * L.ldm * 2),
+                       imax(16 * L.mtx * L.ldf * 2, 16 * L.mtx * L.ldm * 2));
   L.big = off;
-  L.ckv = off + cq_bytes;
+  L.ma = off + cq_bytes;
   off += align128(big);
   L.stage = off;
-  off += align128(NWARPS * 16 * imax(L.mtx, L.mtm) * STRIP * 4);
+  // per warp: its strip's f32 staging, or a 16-query attention pass
+  L.stage_warp = imax(16 * L.mtx * L.sw, 16 * MAXDK);
+  off += align128(NWARPS * L.stage_warp * 4);
   L.total = off;
   return L;
 }
@@ -127,15 +167,41 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Philox4x32-10 (Salmon et al., Random123): four words from a counter and
+// a key, no state.
+__device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
+                                              uint32_t c2, uint32_t c3,
+                                              uint32_t k0, uint32_t k1,
+                                              uint32_t w[4]) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;  c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;  c3 = lo0;
+    k0 += 0x9E3779B9u;   k1 += 0xBB67AE85u;
+  }
+  w[0] = c0;  w[1] = c1;  w[2] = c2;  w[3] = c3;
+}
+
+// one N(0, 1) draw from two words: Box-Muller, the cosine branch
+__device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
+  const float u1 = __uint_as_float((a >> 9) | 0x3F800000u) - 1.0f;
+  const float u2 = __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
+  const float r = sqrtf(-2.0f * logf(fmaxf(u1, 1e-12f)));
+  return r * cosf(6.283185307179586f * u2);
+}
+
 // C[rows, N] = A[rows, K] (bf16, shared, row stride lda) x W[K, N], with W
 // given transposed: Wt[N, K] (bf16, global, row stride ldk).  Warp w
 // computes column strips w, w+8, ... over all mt row tiles, stores each
-// strip to its staging area (f32, mt*16 x STRIP) and runs
-// epi(stage, n0, lane) on it.  N % STRIP == 0, K % 16 == 0.
+// strip to its staging area (f32, mt*16 rows of sw columns: the whole strip
+// when sw == STRIP, else one 16-column half after the other) and runs
+// epi(stage, sw, first column, lane) on it.  N % STRIP == 0, K % 16 == 0.
 template <class Epi>
 __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
                                        const bf16* __restrict__ Wt, int ldk,
-                                       int K, int N, float* stage,
+                                       int K, int N, float* stage, int sw,
                                        const Epi& epi) {
 // Timing-breakdown hooks (tools/fused_ddim_breakdown.py), off in real
 // builds: SKIP_MMA drops the k-loops; FIXED_A / FIXED_B keep that operand's
@@ -184,31 +250,48 @@ __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
 #pragma unroll
       for (int j = 0; j < NT; ++j) b[j] = bn[j];
     }
+    if (sw == STRIP) {
 #pragma unroll
-    for (int m = 0; m < MAXMT; ++m) {
-      if (m < mt) {
+      for (int m = 0; m < MAXMT; ++m) {
+        if (m < mt) {
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          wmma::store_matrix_sync(stage + 16 * m * STRIP + 16 * j, acc[m][j],
-                                  STRIP, wmma::mem_row_major);
+          for (int j = 0; j < NT; ++j)
+            wmma::store_matrix_sync(stage + 16 * m * STRIP + 16 * j, acc[m][j],
+                                    STRIP, wmma::mem_row_major);
+        }
+      }
+      __syncwarp();
+      epi(stage, STRIP, n0, lane);
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int m = 0; m < MAXMT; ++m) {
+          if (m < mt)
+            wmma::store_matrix_sync(stage + 16 * m * 16, acc[m][j], 16,
+                                    wmma::mem_row_major);
+        }
+        __syncwarp();
+        epi(stage, 16, n0 + 16 * j, lane);
+        __syncwarp();
       }
     }
-    __syncwarp();
-    epi(stage, n0, lane);
-    __syncwarp();
   }
 }
 
-// Epilogues: lane c owns column n0 + c of the strip and walks its rows.
+// Epilogues: lane c < sw owns column n0 + c of the staged columns and walks
+// its rows; st has row stride sw.
 
 // h = acc + b_embx + pe_x
 struct EpiEmbX {
   float* h; const bf16* b; const float* pe; int rows, d;
-  __device__ void operator()(const float* st, int n0, int c) const {
+  __device__ void operator()(const float* st, int sw, int n0, int c) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = bf(b[n]);
     for (int r = 0; r < rows; ++r)
-      h[r * d + n] = (st[r * STRIP + c] + bias) + pe[r * d + n];
+      h[r * d + n] = (st[r * sw + c] + bias) + pe[r * d + n];
   }
 };
 
@@ -216,13 +299,14 @@ struct EpiEmbX {
 struct EpiDconv {
   bf16* out; int ldo; const bf16* b; const bf16* taps; const bf16* tb;
   int ntap, rows;
-  __device__ void operator()(const float* st, int n0, int c) const {
+  __device__ void operator()(const float* st, int sw, int n0, int c) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
                 w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
     float prev = 0.0f, cur = st[c] + bias;
     for (int r = 0; r < rows; ++r) {
-      const float nxt = (r + 1 < rows) ? st[(r + 1) * STRIP + c] + bias : 0.0f;
+      const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
       out[r * ldo + n] = __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
       prev = cur;
       cur = nxt;
@@ -230,48 +314,100 @@ struct EpiDconv {
   }
 };
 
+// Memory K and V: the same dconv3(acc + b) over `rows` staged memory rows
+// that start at memory row r0, written for local rows [o_lo, o_hi) into
+// the clip's global scratch kv, row-major with row stride 2d: columns
+// [0, d) are K, [d, 2d) are V.  Row -1 and row `rows` count as absent (zero
+// taps), so a caller that stages a chunk from the middle of the memory
+// leaves the chunk's edge rows to the neighbouring chunk.
+struct EpiMemKV {
+  bf16* kv; int d; const bf16* b; const bf16* taps; const bf16* tb;
+  int r0, rows, o_lo, o_hi;
+  __device__ void operator()(const float* st, int sw, int n0, int c) const {
+    if (c >= sw) return;
+    const int n = n0 + c, ntap = 2 * d;
+    const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
+                w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
+    for (int r = o_lo; r < o_hi; ++r) {
+      const float prev = r > 0 ? st[(r - 1) * sw + c] + bias : 0.0f;
+      const float cur = st[r * sw + c] + bias;
+      const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
+      kv[(size_t)(r0 + r) * ntap + n] =
+          __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
+    }
+  }
+};
+
 // h += acc + b   (b may be null)
 struct EpiResid {
   float* h; const bf16* b; int rows, d;
-  __device__ void operator()(const float* st, int n0, int c) const {
+  __device__ void operator()(const float* st, int sw, int n0, int c) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = b ? bf(b[n]) : 0.0f;
-    for (int r = 0; r < rows; ++r) h[r * d + n] += st[r * STRIP + c] + bias;
+    for (int r = 0; r < rows; ++r) h[r * d + n] += st[r * sw + c] + bias;
   }
 };
 
 // f = relu(acc + b)^2 as bf16 (the FF2 operand); n is the column in the chunk
 struct EpiRelu2 {
   bf16* f; int ldf; const bf16* b; int rows;
-  __device__ void operator()(const float* st, int n0, int c) const {
+  __device__ void operator()(const float* st, int sw, int n0, int c) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = bf(b[n]);
     for (int r = 0; r < rows; ++r) {
-      const float v = fmaxf(st[r * STRIP + c] + bias, 0.0f);
+      const float v = fmaxf(st[r * sw + c] + bias, 0.0f);
       f[r * ldf + n] = __float2bfloat16(v * v);
     }
   }
 };
 
-// eps = acc + b_out, then the DDIM update of the state x in place
+// eps = acc + b_out, then the sampler's update of the state x in place.
+// The step's five coefficients: DDIM reads [c0, c1, sqrt(acp_prev),
+// sqrt(1 - acp_prev)]; DDPM reads [c0, c1, posterior mean coef 1 and 2,
+// sigma].
 struct EpiUpdate {
   float* xs; const float* b; const float* ba; const float* bb;
-  float c0, c1, c2, c3; int rows, dp;
-  __device__ void operator()(const float* st, int n0, int c) const {
+  float c0, c1, c2, c3, sigma; int rows, dp, stochastic;
+  uint32_t k0, k1, step, clip;
+
+  __device__ __forceinline__ void one(int i, float eps, float z) const {
+    const float x = xs[i];
+    if (stochastic) {
+      if (ba == nullptr) {
+        // identity blend folded out: c2*x0 + c3*x with x0 = c0 x - c1 eps
+        xs[i] = ((__fmul_rn(c2, c0) + c3) * x - __fmul_rn(c2, c1) * eps)
+                + sigma * z;
+      } else {
+        const float x0 = ba[i] + bb[i] * (c0 * x - c1 * eps);
+        xs[i] = (c2 * x0 + c3 * x) + sigma * z;
+      }
+    } else if (ba == nullptr) {
+      // identity blend folded out: c2*x0 + c3*eps with x0 = c0 x - c1 eps
+      xs[i] = __fmul_rn(c2, c0) * x + (c3 - __fmul_rn(c2, c1)) * eps;
+    } else {
+      float x0 = c0 * x - c1 * eps;
+      x0 = ba[i] + bb[i] * x0;
+      const float e2 = (c0 * x - x0) / c1;   // eps re-derived from blended x0
+      xs[i] = c2 * x0 + c3 * e2;
+    }
+  }
+
+  __device__ void operator()(const float* st, int sw, int n0, int c) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = b[n];
-    for (int r = 0; r < rows; ++r) {
-      const int i = r * dp + n;
-      const float eps = st[r * STRIP + c] + bias, x = xs[i];
-      if (ba == nullptr) {
-        // identity blend folded out: c2*x0 + c3*eps with x0 = c0 x - c1 eps
-        xs[i] = __fmul_rn(c2, c0) * x + (c3 - __fmul_rn(c2, c1)) * eps;
-      } else {
-        float x0 = c0 * x - c1 * eps;
-        x0 = ba[i] + bb[i] * x0;
-        const float e2 = (c0 * x - x0) / c1;   // eps re-derived from blended x0
-        xs[i] = c2 * x0 + c3 * e2;
+    for (int r = 0; r < rows; r += 2) {
+      float z0 = 0.0f, z1 = 0.0f;
+      if (stochastic) {
+        uint32_t w[4];
+        philox4x32_10((uint32_t)((r >> 1) * dp + n), step, clip, 0u, k0, k1, w);
+        z0 = box_muller(w[0], w[1]);
+        z1 = box_muller(w[2], w[3]);
       }
+      one(r * dp + n, st[r * sw + c] + bias, z0);
+      if (r + 1 < rows) one((r + 1) * dp + n, st[(r + 1) * sw + c] + bias, z1);
     }
   }
 };
@@ -295,172 +431,225 @@ __device__ void layer_norm(const float* h, int rows, int d, bf16* z, int ldz) {
   }
 }
 
-// o[i, head] = softmax(q_i . K^T * scale) V, one warp per head, QG queries
-// per pass.  Lane j owns keys j and j+32; bf16 operands, f32 scores,
-// softmax and sums, P rounded to bf16 and parked in this warp's pbuf
-// (QG x 64 floats) for the P.V pass, where lane d owns output dims d, d+32.
-#define QG 4
-__device__ void attention(const bf16* q, int ldq, const bf16* k,
-                          const bf16* v, int ldkv, int nq, int nk, int heads,
-                          int dk, float scale, bf16* o, int ldo, float* pbuf) {
+// o[i, head] = softmax(q_i . K^T * scale) V on the tensor cores, one warp
+// per head, 16 queries per pass.  q, k and v are row-major bf16 (shared or
+// global memory; k and v one row per key), dk a multiple of 16.  A pass
+// stores S = Q K^T (f32) to the warp's staging area sbuf as 16 rows of nkp
+// columns (nk rounded up to whole tiles), runs the softmax of each row in
+// f32 with lane j owning columns j, j+32, ..., writes P rounded to bf16 over
+// the scores (the rows of P written in one go end before the next unread
+// row of S begins), multiplies P V, and stages the 16 x dk output behind P
+// for its rounding to bf16.  Key columns >= nk get P = 0; their K and V
+// rows, and the query rows >= nq of the last tile, only have to be readable
+// and finite.  A pass needs max(16 nkp, 8 nkp + 16 dk) floats; where that
+// is more than one warp's staging area, every `span`-th warp works, over
+// the areas of the warps it displaces.
+__device__ void attention(const bf16* q, int ldq, const bf16* k, int ldk,
+                          const bf16* v, int ldv, int nq, int nk, int heads,
+                          int dk, float scale, bf16* o, int ldo, float* sbuf,
+                          int stage_warp) {
 #ifdef FUSED_DDIM_SKIP_ATTN
   return;  // timing-breakdown hook, off in real builds
 #endif
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool wide = dk > 32;
-  for (int hh = warp; hh < heads; hh += NWARPS) {
+  const int nkp = (nk + 15) & ~15;
+  int span = 1;
+  while (span * stage_warp < imax(16 * nkp, 8 * nkp + 16 * dk)) span *= 2;
+  if (warp % span) return;
+  bf16* pb = reinterpret_cast<bf16*>(sbuf);
+  float* obuf = sbuf + 8 * nkp;           // behind the 16 x nkp bf16 of P
+  for (int hh = warp / span; hh < heads; hh += NWARPS / span) {
     const int hd = hh * dk;
-    for (int i0 = 0; i0 < nq; i0 += QG) {
-      const __nv_bfloat162* qr[QG];
+    for (int i0 = 0; i0 < nq; i0 += 16) {
+      for (int j0 = 0; j0 < nkp; j0 += 16) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
+        wmma::fill_fragment(sc, 0.0f);
+        for (int e = 0; e < dk; e += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
+          wmma::load_matrix_sync(qa, q + (size_t)i0 * ldq + hd + e, ldq);
+          wmma::load_matrix_sync(kb, k + (size_t)j0 * ldk + hd + e, ldk);
+          wmma::mma_sync(sc, qa, kb, sc);
+        }
+        wmma::store_matrix_sync(sbuf + j0, sc, nkp, wmma::mem_row_major);
+      }
+      __syncwarp();
+      // four rows at a time, so that their shuffle chains overlap
+      const int rows = imin(16, nq - i0);
+      for (int r0 = 0; r0 < rows; r0 += SMR) {
+        float s[SMR][MAXKC], mx[SMR], sum[SMR];
 #pragma unroll
-      for (int g = 0; g < QG; ++g)
-        qr[g] = reinterpret_cast<const __nv_bfloat162*>(
-            q + min(i0 + g, nq - 1) * ldq + hd);
-      float s[QG][MAXKC];
+        for (int g = 0; g < SMR; ++g) {
+          mx[g] = -INFINITY;
 #pragma unroll
-      for (int cc = 0; cc < MAXKC; ++cc) {
-        const int j = lane + 32 * cc;
-        const bool live = j < nk;
-#pragma unroll
-        for (int g = 0; g < QG; ++g) s[g][cc] = -INFINITY;
-        if (32 * cc >= nk) continue;          // warp-uniform
-        const __nv_bfloat162* kj = reinterpret_cast<const __nv_bfloat162*>(
-            k + (live ? j : 0) * ldkv + hd);
-        float acc[QG];
-#pragma unroll
-        for (int g = 0; g < QG; ++g) acc[g] = 0.0f;
-#pragma unroll 4
-        for (int e = 0; e < dk / 2; ++e) {
-          const float2 kf = __bfloat1622float2(kj[e]);
-#pragma unroll
-          for (int g = 0; g < QG; ++g) {
-            const float2 qf = __bfloat1622float2(qr[g][e]);
-            acc[g] = fmaf(qf.x, kf.x, acc[g]);
-            acc[g] = fmaf(qf.y, kf.y, acc[g]);
+          for (int cc = 0; cc < MAXKC; ++cc) {
+            if (32 * cc >= nkp) break;        // warp-uniform
+            const int j = lane + 32 * cc;
+            s[g][cc] = j < nk ? sbuf[(r0 + g) * nkp + j] * scale : -INFINITY;
+            mx[g] = fmaxf(mx[g], s[g][cc]);
           }
         }
 #pragma unroll
-        for (int g = 0; g < QG; ++g) s[g][cc] = live ? acc[g] * scale : -INFINITY;
-      }
+        for (int sh = 16; sh > 0; sh >>= 1)
 #pragma unroll
-      for (int g = 0; g < QG; ++g) {
-        float mx = s[g][0];
+          for (int g = 0; g < SMR; ++g)
+            mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], sh));
 #pragma unroll
-        for (int cc = 1; cc < MAXKC; ++cc) mx = fmaxf(mx, s[g][cc]);
-        mx = warp_max(mx);
-        float sum = 0.0f;
+        for (int g = 0; g < SMR; ++g) {
+          sum[g] = 0.0f;
 #pragma unroll
-        for (int cc = 0; cc < MAXKC; ++cc) {
-          s[g][cc] = (lane + 32 * cc < nk) ? expf(s[g][cc] - mx) : 0.0f;
-          sum += s[g][cc];
+          for (int cc = 0; cc < MAXKC; ++cc) {
+            if (32 * cc >= nkp) break;
+            s[g][cc] = lane + 32 * cc < nk ? expf(s[g][cc] - mx[g]) : 0.0f;
+            sum[g] += s[g][cc];
+          }
         }
-        const float inv = 1.0f / warp_sum(sum);
 #pragma unroll
-        for (int cc = 0; cc < MAXKC; ++cc)
-          pbuf[g * 32 * MAXKC + lane + 32 * cc] =
-              bf(__float2bfloat16(s[g][cc] * inv));
+        for (int sh = 16; sh > 0; sh >>= 1)
+#pragma unroll
+          for (int g = 0; g < SMR; ++g)
+            sum[g] += __shfl_xor_sync(0xffffffffu, sum[g], sh);
+        __syncwarp();   // every lane has read these rows of S
+#pragma unroll
+        for (int g = 0; g < SMR; ++g) {
+          const float inv = 1.0f / sum[g];
+#pragma unroll
+          for (int cc = 0; cc < MAXKC; ++cc)
+            if (lane + 32 * cc < nkp)
+              pb[(r0 + g) * nkp + lane + 32 * cc] =
+                  __float2bfloat16(s[g][cc] * inv);
+        }
       }
       __syncwarp();
-      float o0[QG], o1[QG];
-#pragma unroll
-      for (int g = 0; g < QG; ++g) o0[g] = o1[g] = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < nk; ++j) {
-        const bf16* vj = v + j * ldkv + hd;
-        const float v0 = bf(vj[lane]);
-        const float v1 = wide && lane + 32 < dk ? bf(vj[lane + 32]) : 0.0f;
-#pragma unroll
-        for (int g = 0; g < QG; ++g) {
-          const float pj = pbuf[g * 32 * MAXKC + j];
-          o0[g] = fmaf(pj, v0, o0[g]);
-          if (wide) o1[g] = fmaf(pj, v1, o1[g]);
+      // O = P V, one 16-column tile of the head at a time, staged behind P
+      for (int e = 0; e < dk; e += 16) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc;
+        wmma::fill_fragment(oc, 0.0f);
+        for (int j0 = 0; j0 < nkp; j0 += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+          wmma::load_matrix_sync(pa, pb + j0, nkp);
+          wmma::load_matrix_sync(vb, v + (size_t)j0 * ldv + hd + e, ldv);
+          wmma::mma_sync(oc, pa, vb, oc);
         }
+        wmma::store_matrix_sync(obuf + e, oc, dk, wmma::mem_row_major);
       }
-#pragma unroll
-      for (int g = 0; g < QG; ++g) {
-        if (i0 + g < nq) {
-          if (lane < dk) o[(i0 + g) * ldo + hd + lane] = __float2bfloat16(o0[g]);
-          if (lane + 32 < dk)
-            o[(i0 + g) * ldo + hd + lane + 32] = __float2bfloat16(o1[g]);
-        }
-      }
-      __syncwarp();   // pbuf is rewritten by the next pass
+      __syncwarp();
+      for (int r = 0; r < rows; ++r)
+        for (int c = lane; c < dk; c += 32)
+          o[(i0 + r) * ldo + hd + c] = __float2bfloat16(obuf[r * dk + c]);
+      __syncwarp();     // sbuf is rewritten by the next pass
     }
   }
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(p.t, p.nm, p.d, p.dp, p.fc);
+  const Layout L = make_layout(p.t, p.d, p.dp, p.fc, p.half);
   const int T = p.t, NM = p.nm, D = p.d, DP = p.dp, F = p.f, FC = p.fc;
+  const int NMP = (NM + 15) & ~15;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int clip = blockIdx.x;
+  const int sw = L.sw;
 
-  float* xs = reinterpret_cast<float*>(smem + L.xs);
   float* h = reinterpret_cast<float*>(smem + L.h);
   bf16* za = reinterpret_cast<bf16*>(smem + L.za);
-  bf16* ma = reinterpret_cast<bf16*>(smem + L.ma);
   bf16* big = reinterpret_cast<bf16*>(smem + L.big);
-  bf16* ckv = reinterpret_cast<bf16*>(smem + L.ckv);
-  float* stage = reinterpret_cast<float*>(smem + L.stage) +
-                 warp * 16 * imax(L.mtx, L.mtm) * STRIP;
+  bf16* ma = reinterpret_cast<bf16*>(smem + L.ma);
+  float* stage = reinterpret_cast<float*>(smem + L.stage) + warp * L.stage_warp;
 
-  // zero the operand areas so that pad rows of every row tile hold 0
-  for (int i = tid; i < (L.stage - L.za) / 4; i += NTHREADS)
-    reinterpret_cast<uint32_t*>(smem + L.za)[i] = 0u;
-  __syncthreads();
+  // the state x lives in the clip's slice of the output
+  float* xs = p.out + (size_t)clip * T * DP;
   const float* xg = p.x_T + (size_t)clip * T * DP;
-  for (int i = tid; i < T * DP; i += NTHREADS) xs[i] = xg[i];
-  const bf16* mg = p.mem + (size_t)clip * NM * D;
-  for (int i = D + tid; i < NM * D; i += NTHREADS)
-    ma[(i / D) * L.ldm + i % D] = mg[i];
+  const float* xa = p.x_add ? p.x_add + (size_t)clip * T * DP : nullptr;
   const float* ba = p.blend_a ? p.blend_a + (size_t)clip * T * DP : nullptr;
   const float* bb = p.blend_b ? p.blend_b + (size_t)clip * T * DP : nullptr;
+  const bf16* mg = p.mem + (size_t)clip * NM * D;
+  // scratch of this clip: per layer NMP rows of [K | V]
+  const size_t kv_layer = (size_t)2 * D * NMP;
+  bf16* kvs = p.kv + (size_t)clip * p.layers * kv_layer;
   const int dk = D / p.heads;
   const float scale = 1.0f / sqrtf((float)dk);
+  const size_t dd = (size_t)D * D;
+  const unsigned long long seed = p.stochastic ? *p.seed : 0ull;
+
+  // zero the operand areas so that pad rows of every row tile hold 0
+  for (int i = tid; i < (L.total - L.za) / 4; i += NTHREADS)
+    reinterpret_cast<uint32_t*>(smem + L.za)[i] = 0u;
+  for (int i = tid; i < T * DP; i += NTHREADS) xs[i] = xg[i];
+  __syncthreads();
+
+  // memory K and V of every layer, once: chunks of 16*mtx memory rows that
+  // overlap by two, so that each row's dconv sees its real neighbours
+  {
+    const int ch = 16 * L.mtx;
+    for (int s0 = 0;; s0 += ch - 2) {
+      const int rows = imin(ch, NM - s0);
+      const bool last = s0 + rows >= NM;
+      for (int i = tid; i < ch * D; i += NTHREADS) {
+        const int r = i / D, c = i % D;
+        big[r * L.ldm + c] = r < rows ? mg[(size_t)(s0 + r) * D + c]
+                                      : __float2bfloat16(0.0f);
+      }
+      __syncthreads();
+      for (int l = 0; l < p.layers; ++l)
+        matmul(big, L.ldm, (rows + 15) / 16, p.cross_wkv + l * 2 * dd, D, D,
+               2 * D, stage, sw,
+               EpiMemKV{kvs + l * kv_layer, D, p.cross_bkv + l * 2 * D,
+                        p.cross_dkv + l * 6 * D, p.cross_dkvb + l * 2 * D, s0,
+                        rows, s0 == 0 ? 0 : 1, last ? rows : rows - 1});
+      __syncthreads();
+      if (last) break;
+    }
+  }
 
   for (int it = 0; it < p.steps; ++it) {
     const int s = p.steps - 1 - it;
-    for (int c = tid; c < D; c += NTHREADS) ma[c] = p.tok[(size_t)s * D + c];
     for (int i = tid; i < T * DP; i += NTHREADS)
-      za[(i / DP) * L.lda + i % DP] = __float2bfloat16(xs[i]);
+      za[(i / DP) * L.lda + i % DP] =
+          __float2bfloat16(xa ? xs[i] + xa[i] : xs[i]);
     __syncthreads();
-    matmul(za, L.lda, L.mtx, p.w_embx, DP, DP, D, stage,
+    matmul(za, L.lda, L.mtx, p.w_embx, DP, DP, D, stage, sw,
            EpiEmbX{h, p.b_embx, p.pe_x, T, D});
     __syncthreads();
 
     for (int l = 0; l < p.layers; ++l) {
-      const size_t dd = (size_t)D * D;
       // self-attention: merged QKV + dconv -> attention -> out-proj
       layer_norm(h, T, D, za, L.lda);
       __syncthreads();
-      matmul(za, L.lda, L.mtx, p.self_wqkv + l * 3 * dd, D, D, 3 * D, stage,
+      matmul(za, L.lda, L.mtx, p.self_wqkv + l * 3 * dd, D, D, 3 * D, stage, sw,
              EpiDconv{big, L.ldqkv, p.self_bqkv + l * 3 * D,
                       p.self_dconv + l * 9 * D, p.self_dbias + l * 3 * D,
                       3 * D, T});
       __syncthreads();
-      attention(big, L.ldqkv, big + D, big + 2 * D, L.ldqkv, T, T, p.heads, dk,
-                scale, za, L.lda, stage);
+      attention(big, L.ldqkv, big + D, L.ldqkv, big + 2 * D, L.ldqkv, T, T,
+                p.heads, dk, scale, za, L.lda, stage, L.stage_warp);
       __syncthreads();
-      matmul(za, L.lda, L.mtx, p.self_wo + l * dd, D, D, D, stage,
+      matmul(za, L.lda, L.mtx, p.self_wo + l * dd, D, D, D, stage, sw,
              EpiResid{h, p.self_bo + l * D, T, D});
       __syncthreads();
 
-      // cross-attention: q from h, merged KV from the memory rows
+      // cross-attention: q from h; memory rows 0 and 1 of K and V from the
+      // tile [token; memory row 1; memory row 2], the rest is in the scratch
       layer_norm(h, T, D, za, L.lda);
+      const int mrows = imin(NM, 3);
+      for (int i = tid; i < mrows * D; i += NTHREADS) {
+        const int r = i / D, c = i % D;
+        ma[r * L.ldm + c] = r == 0 ? p.tok[(size_t)s * D + c] : mg[r * D + c];
+      }
       __syncthreads();
-      matmul(za, L.lda, L.mtx, p.cross_wq + l * dd, D, D, D, stage,
+      bf16* kv = kvs + l * kv_layer;
+      matmul(za, L.lda, L.mtx, p.cross_wq + l * dd, D, D, D, stage, sw,
              EpiDconv{big, L.ldcq, p.cross_bq + l * D, p.cross_dq + l * 3 * D,
                       p.cross_dqb + l * D, D, T});
-      matmul(ma, L.ldm, L.mtm, p.cross_wkv + l * 2 * dd, D, D, 2 * D, stage,
-             EpiDconv{ckv, L.ldckv, p.cross_bkv + l * 2 * D,
-                      p.cross_dkv + l * 6 * D, p.cross_dkvb + l * 2 * D, 2 * D,
-                      NM});
+      matmul(ma, L.ldm, 1, p.cross_wkv + l * 2 * dd, D, D, 2 * D, stage, sw,
+             EpiMemKV{kv, D, p.cross_bkv + l * 2 * D, p.cross_dkv + l * 6 * D,
+                      p.cross_dkvb + l * 2 * D, 0, mrows, 0, 2});
       __syncthreads();
-      attention(big, L.ldcq, ckv, ckv + D, L.ldckv, T, NM, p.heads, dk, scale,
-                za, L.lda, stage);
+      attention(big, L.ldcq, kv, 2 * D, kv + D, 2 * D, T, NM, p.heads, dk, scale,
+                za, L.lda, stage, L.stage_warp);
       __syncthreads();
-      matmul(za, L.lda, L.mtx, p.cross_wo + l * dd, D, D, D, stage,
+      matmul(za, L.lda, L.mtx, p.cross_wo + l * dd, D, D, D, stage, sw,
              EpiResid{h, p.cross_bo + l * D, T, D});
       __syncthreads();
 
@@ -469,63 +658,82 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       __syncthreads();
       for (int c0 = 0; c0 < F; c0 += FC) {
         matmul(za, L.lda, L.mtx, p.ff_w1 + ((size_t)l * F + c0) * D, D, D, FC,
-               stage, EpiRelu2{big, L.ldf, p.ff_b1 + (size_t)l * F + c0, T});
+               stage, sw, EpiRelu2{big, L.ldf, p.ff_b1 + (size_t)l * F + c0, T});
         __syncthreads();
         matmul(big, L.ldf, L.mtx, p.ff_w2 + (size_t)l * D * F + c0, F, FC, D,
-               stage, EpiResid{h, c0 == 0 ? p.ff_b2 + l * D : nullptr, T, D});
+               stage, sw, EpiResid{h, c0 == 0 ? p.ff_b2 + l * D : nullptr, T, D});
         __syncthreads();
       }
     }
 
     layer_norm(h, T, D, za, L.lda);
     __syncthreads();
-    const float* cf = p.coefs + (size_t)s * 4;
-    matmul(za, L.lda, L.mtx, p.w_out, D, D, DP, stage,
-           EpiUpdate{xs, p.b_out, ba, bb, cf[0], cf[1], cf[2], cf[3], T, DP});
+    const float* cf = p.coefs + (size_t)s * 5;
+    matmul(za, L.lda, L.mtx, p.w_out, D, D, DP, stage, sw,
+           EpiUpdate{xs, p.b_out, ba, bb, cf[0], cf[1], cf[2], cf[3], cf[4], T, DP,
+                     p.stochastic, (uint32_t)seed, (uint32_t)(seed >> 32),
+                     (uint32_t)s, (uint32_t)clip});
     __syncthreads();
   }
-
-  float* og = p.out + (size_t)clip * T * DP;
-  for (int i = tid; i < T * DP; i += NTHREADS) og[i] = xs[i];
 }
 
-extern "C" int fused_ddim_smem_bytes(int t, int nm, int d, int dp, int fc) {
-  return make_layout(t, nm, d, dp, fc).total;
+extern "C" int fused_ddim_smem_bytes(int t, int d, int dp, int fc, int half) {
+  return make_layout(t, d, dp, fc, half).total;
+}
+
+// bf16 elements of one clip's K/V scratch
+extern "C" long long fused_ddim_scratch_elems(int nm, int d, int layers) {
+  return (long long)layers * 2 * d * ((nm + 15) & ~15);
 }
 
 extern "C" int fused_ddim_launch(void** ptrs, int n_ptrs, const int* dims,
                                  int n_dims, void* stream) {
-  if (n_ptrs != 32 || n_dims != 10) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != N_PTRS || n_dims != N_DIMS) return (int)cudaErrorInvalidValue;
   Params p;
   p.x_T = (const float*)ptrs[0];       p.out = (float*)ptrs[1];
   p.mem = (const bf16*)ptrs[2];        p.tok = (const bf16*)ptrs[3];
   p.coefs = (const float*)ptrs[4];
   p.blend_a = (const float*)ptrs[5];   p.blend_b = (const float*)ptrs[6];
-  p.w_embx = (const bf16*)ptrs[7];     p.b_embx = (const bf16*)ptrs[8];
-  p.pe_x = (const float*)ptrs[9];
-  p.self_wqkv = (const bf16*)ptrs[10]; p.self_bqkv = (const bf16*)ptrs[11];
-  p.self_dconv = (const bf16*)ptrs[12]; p.self_dbias = (const bf16*)ptrs[13];
-  p.self_wo = (const bf16*)ptrs[14];   p.self_bo = (const bf16*)ptrs[15];
-  p.cross_wq = (const bf16*)ptrs[16];  p.cross_bq = (const bf16*)ptrs[17];
-  p.cross_wkv = (const bf16*)ptrs[18]; p.cross_bkv = (const bf16*)ptrs[19];
-  p.cross_dq = (const bf16*)ptrs[20];  p.cross_dqb = (const bf16*)ptrs[21];
-  p.cross_dkv = (const bf16*)ptrs[22]; p.cross_dkvb = (const bf16*)ptrs[23];
-  p.cross_wo = (const bf16*)ptrs[24];  p.cross_bo = (const bf16*)ptrs[25];
-  p.ff_w1 = (const bf16*)ptrs[26];     p.ff_b1 = (const bf16*)ptrs[27];
-  p.ff_w2 = (const bf16*)ptrs[28];     p.ff_b2 = (const bf16*)ptrs[29];
-  p.w_out = (const bf16*)ptrs[30];     p.b_out = (const float*)ptrs[31];
+  p.x_add = (const float*)ptrs[7];     p.kv = (bf16*)ptrs[8];
+  p.seed = (const unsigned long long*)ptrs[9];
+  p.w_embx = (const bf16*)ptrs[10];
+  p.b_embx = (const bf16*)ptrs[11];
+  p.pe_x = (const float*)ptrs[12];
+  p.self_wqkv = (const bf16*)ptrs[13];
+  p.self_bqkv = (const bf16*)ptrs[14];
+  p.self_dconv = (const bf16*)ptrs[15];
+  p.self_dbias = (const bf16*)ptrs[16];
+  p.self_wo = (const bf16*)ptrs[17];
+  p.self_bo = (const bf16*)ptrs[18];
+  p.cross_wq = (const bf16*)ptrs[19];
+  p.cross_bq = (const bf16*)ptrs[20];
+  p.cross_wkv = (const bf16*)ptrs[21];
+  p.cross_bkv = (const bf16*)ptrs[22];
+  p.cross_dq = (const bf16*)ptrs[23];
+  p.cross_dqb = (const bf16*)ptrs[24];
+  p.cross_dkv = (const bf16*)ptrs[25];
+  p.cross_dkvb = (const bf16*)ptrs[26];
+  p.cross_wo = (const bf16*)ptrs[27];
+  p.cross_bo = (const bf16*)ptrs[28];
+  p.ff_w1 = (const bf16*)ptrs[29];
+  p.ff_b1 = (const bf16*)ptrs[30];
+  p.ff_w2 = (const bf16*)ptrs[31];
+  p.ff_b2 = (const bf16*)ptrs[32];
+  p.w_out = (const bf16*)ptrs[33];
+  p.b_out = (const float*)ptrs[34];
   p.n = dims[0];  p.t = dims[1];  p.nm = dims[2];  p.d = dims[3];
   p.dp = dims[4]; p.f = dims[5];  p.layers = dims[6];  p.heads = dims[7];
-  p.steps = dims[8];  p.fc = dims[9];
+  p.steps = dims[8];  p.fc = dims[9];  p.half = dims[10];
+  p.stochastic = dims[11];
 
   const int dk = p.heads > 0 ? p.d / p.heads : 0;
   if (p.n < 1 || p.t < 1 || p.t > 16 * MAXMT || p.nm < 2 ||
-      p.nm > 16 * MAXMT || p.nm > 32 * MAXKC || p.t > 32 * MAXKC ||
-      p.heads < 1 || p.d % p.heads || dk % 2 || dk > 64 || p.d % STRIP ||
-      p.dp % STRIP || p.fc % STRIP || p.fc < STRIP || p.f % p.fc ||
-      p.steps < 1 || p.layers < 1)
+      p.nm > 32 * MAXKC || p.heads < 1 || p.d % p.heads || dk % 16 ||
+      dk > MAXDK || p.d % STRIP || p.dp % STRIP || p.fc % STRIP ||
+      p.fc < STRIP || p.f % p.fc || p.steps < 1 || p.layers < 1 ||
+      p.kv == nullptr || (p.stochastic && p.seed == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(p.t, p.nm, p.d, p.dp, p.fc);
+  const Layout L = make_layout(p.t, p.d, p.dp, p.fc, p.half);
   if (L.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fused_ddim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);

@@ -1,17 +1,26 @@
-"""Gaussian diffusion coefficient tables and the eps <-> x0 conversions.
+"""Gaussian diffusion as functions over a coefficient table: the forward
+process q, the posterior, the model's reverse step p and the eps <-> x0
+conversions.
 
-Port of ``gesture_diffusion_tpu/diffusion/gaussian.py``: every table is
-computed on the host in float64 and stored as float32 tensors (CPU by
-default; ``Schedule.to`` moves it).  Layout is batch-first (N, T, C).
-Variance type is FIXED_SMALL with epsilon prediction.
+Port of ``gesture_diffusion_tpu/diffusion/gaussian.py`` (without
+``training_losses``, which comes with training): every table is computed
+on the host in float64 and stored as float32 tensors (CPU by default;
+``Schedule.to`` moves it).  Model evaluation is ``model_fn(x_t, t) ->
+eps``, so the caller closes over the conditioning memory.  Layout is
+batch-first (N, T, C).  Variance type is FIXED_SMALL with epsilon
+prediction.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+
+ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]   # (x_t, t) -> eps
+DenoiseFn = Callable[[torch.Tensor], torch.Tensor]             # x0_hat -> x0_hat
 
 
 class Schedule(NamedTuple):
@@ -77,6 +86,35 @@ def _gather(coef: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     return out.reshape(out.shape + (1,) * (ndim - out.ndim))
 
 
+def q_mean_variance(sched: Schedule, x_start: torch.Tensor, t: torch.Tensor):
+    """Mean, variance and log-variance of q(x_t | x_0)."""
+    mean = _gather(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+    variance = _gather(1.0 - sched.alphas_cumprod, t, x_start.ndim)
+    log_variance = _gather(sched.log_one_minus_alphas_cumprod, t, x_start.ndim)
+    return mean, variance, log_variance
+
+
+def q_sample(sched: Schedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Sample q(x_t | x_0).  t == -1 passes x_start through (the
+    continuity-loss convention of the reference)."""
+    x_t = (_gather(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+           + _gather(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
+           * noise)
+    t_b = t.reshape(t.shape + (1,) * (x_start.ndim - t.ndim))
+    return torch.where(t_b == -1, x_start, x_t)
+
+
+def q_posterior_mean_variance(sched: Schedule, x_start: torch.Tensor,
+                              x_t: torch.Tensor, t: torch.Tensor):
+    """Mean, variance and clipped log-variance of q(x_{t-1} | x_t, x_0)."""
+    mean = (_gather(sched.posterior_mean_coef1, t, x_t.ndim) * x_start
+            + _gather(sched.posterior_mean_coef2, t, x_t.ndim) * x_t)
+    variance = _gather(sched.posterior_variance, t, x_t.ndim)
+    log_variance = _gather(sched.posterior_log_variance_clipped, t, x_t.ndim)
+    return mean, variance, log_variance
+
+
 def predict_xstart_from_eps(sched: Schedule, x_t: torch.Tensor,
                             t: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     return (_gather(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
@@ -89,3 +127,32 @@ def predict_eps_from_xstart(sched: Schedule, x_t: torch.Tensor,
     return ((_gather(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
              - x_start)
             / _gather(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim))
+
+
+def p_mean_variance(sched: Schedule, model_fn: ModelFn, x: torch.Tensor,
+                    t: torch.Tensor, denoise_fn: Optional[DenoiseFn] = None,
+                    cond_fn: Optional[DenoiseFn] = None) -> dict:
+    """Model mean/variance of p(x_{t-1} | x_t) with epsilon prediction and
+    FIXED_SMALL variance.  ``denoise_fn`` is applied to the predicted x0
+    (seed-pose blending); ``raw_x_start`` keeps the prediction before it."""
+    eps = model_fn(x, t)
+    if cond_fn is not None:
+        eps = cond_fn(eps)
+    pred_x_start = predict_xstart_from_eps(sched, x, t, eps)
+    raw_x_start = pred_x_start
+    if denoise_fn is not None:
+        pred_x_start = denoise_fn(pred_x_start)
+    mean, variance, log_variance = q_posterior_mean_variance(
+        sched, pred_x_start, x, t)
+    return {
+        "mean": mean,
+        "variance": variance,
+        "log_variance": log_variance,
+        "eps": eps,
+        "pred_x_start": pred_x_start,
+        "raw_x_start": raw_x_start,
+    }
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=tuple(range(1, x.ndim)))

@@ -1,3 +1,5 @@
-from .generator import Generator, crossfade_head, make_trans_ramp, window_plan
+from .generator import (Generator, GestureStream, crossfade_head,
+                        make_trans_ramp, window_plan)
 
-__all__ = ["Generator", "crossfade_head", "make_trans_ramp", "window_plan"]
+__all__ = ["Generator", "GestureStream", "crossfade_head", "make_trans_ramp",
+           "window_plan"]

@@ -1,16 +1,26 @@
-"""Sampling-time API: single windows, long sequences, latency.
+"""Sampling-time API: single windows, long sequences, streaming, bpd,
+latency.
 
 Port of ``gesture_diffusion_tpu/generation/generator.py`` (the serving
-path):
+path), for all three model types (s2g_v2, default, inpaint) and both
+sampling algorithms (ddim, ddpm):
 
   * ``generate_sample`` — the speech memory is encoded once per clip, then
-    the whole reverse process runs in the fused DDIM kernel
-    (``ops/fused_sampler.py``) or, with ``use_fused=False``, in the scan
-    sampler (the ``nn.Module`` stepped by ``ddim_sample_loop``);
+    the whole reverse process runs in the fused kernel
+    (``ops/fused_sampler.py``) or, with ``use_fused=False``, in a scan
+    sampler (the ``nn.Module`` stepped by ``ddim_sample_loop`` or
+    ``ddpm_sample_loop``);
   * seed-pose continuation through the x0 blend with the ``trans_factor``
-    per-frame ramp;
+    per-frame ramp; for the inpaint model type the same seed poses and mask
+    also feed its conditioning MLP, computed once per call (``x_add``);
   * ``generate_sequence`` — long audio in overlapping windows, window i
     seeded from the tail of window i-1, optional crossfade at the seams;
+  * ``stream`` / ``GestureStream`` — the same plan as a push API: windows
+    are launched as their audio arrives, the seed tail stays on the device,
+    and results come to the host only when more than ``max_in_flight``
+    windows are pending;
+  * ``eval_bpd`` — the variational bound over all timesteps, with the
+    memory encoded once;
   * ``eval_infer_time`` — warm-up, then timed reps that end in a
     device synchronise.
 
@@ -21,6 +31,12 @@ raises.  Compute-dtype policy: ``fused_dtype`` (default bfloat16) is both
 the packed weight dtype and the dtype the operands of every product are
 rounded to; accumulation, LayerNorm, softmax, the residual stream and the
 diffusion state stay float32 (see ``ops/fused_sampler.py``).
+
+Randomness: initial noise and, for DDPM, the per-step noise come from the
+caller's ``torch.Generator``.  The fused DDPM path draws one seed from it
+and the kernel derives every step's noise from that seed
+(``ops/fused_sampler.py::fused_noise``); the scan path draws each step's
+z from the generator itself.
 
 All layouts are (N, T, C).
 """
@@ -33,12 +49,12 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..diffusion import ddim_sample_loop
+from ..diffusion import bpd_loop, ddim_sample_loop, ddpm_sample_loop
 from ..diffusion.gaussian import Schedule
 from ..models.attention import sinusoidal_position_encoding
 from ..models.denoiser import GestureDenoiser
-from ..ops.fused_sampler import (ddim_coefficients, fused_ddim_sample,
-                                 pack_oneway_denoiser)
+from ..ops.fused_sampler import (ddim_coefficients, ddpm_coefficients,
+                                 fused_ddim_sample, pack_oneway_denoiser)
 from ..utils.device import resolve_device
 
 
@@ -98,8 +114,8 @@ class Generator:
         fused_dtype: Optional[torch.dtype] = None,
         device=None,
     ):
-        """:param use_fused: sample through the fused DDIM kernel (the
-        default); False is the caller's explicit choice of the scan
+        """:param use_fused: sample through the fused kernel (the
+        default); False is the caller's explicit choice of a scan
         sampler.
         :param fused_dtype: weight and product-operand dtype of the fused
         path (bfloat16 by default; the CUDA kernel takes only bfloat16).
@@ -119,14 +135,17 @@ class Generator:
         self._packed_key = None
         self._tmap = (self.timestep_map if self.timestep_map is not None
                       else torch.arange(self.num_steps, device=self.device))
-        self._coefs = ddim_coefficients(self.sched).to(self.device)
+        self._coefs = {"ddim": ddim_coefficients(self.sched).to(self.device),
+                       "ddpm": ddpm_coefficients(self.sched).to(self.device)}
         self._pe = torch.from_numpy(sinusoidal_position_encoding(
             5000, model.cfg.d_model)).to(self.device)
 
     def update_variables(self, state_dict) -> None:
         """Load new weights (e.g. after further training).  Use this rather
         than loading into ``self.model`` directly: the fused path packs the
-        weights once and caches the pack, which this drops."""
+        weights once and caches the pack, which this drops, and with it
+        the kernel-side transposed copies kept for the pack's lifetime
+        (``ops/fused_sampler.py::kernel_weights``)."""
         self.model.load_state_dict(state_dict)
         self._packed = None
         self._packed_key = None
@@ -160,11 +179,16 @@ class Generator:
         slot = torch.zeros_like(rows[:, :1])
         return torch.cat([slot, rows], dim=1).float()
 
+    def _inpaint_model(self) -> bool:
+        return self.model.cfg.model_type == "inpaint"
+
     def fused_args(self, wavs, pose_dim, pose_window_len, noise, ip=None,
-                   im=None, ramp=None) -> dict:
+                   im=None, ramp=None, sample_alg: str = "ddim",
+                   seed=0) -> dict:
         """Keyword arguments of ``fused_ddim_sample`` for one window batch
         (device tensors in): the cached pack, padded x_T, memory rows, the
-        blend tensors (None for the identity blend) and the schedule."""
+        blend tensors (None for the identity blend), the inpaint type's
+        ``x_add``, and the schedule of ``sample_alg``."""
         cfg = self.model.cfg
         key = (pose_dim, pose_window_len)
         if self._packed is None or self._packed_key != key:
@@ -181,29 +205,47 @@ class Generator:
             out[:, :, :pose_dim] = val
             return out
 
-        blend_a = blend_b = None
+        blend_a = blend_b = x_add = None
         if ip is not None:
             tf = 0.0 if ramp is None else ramp
             blend_a = embed((1.0 - tf) * im * ip)
             blend_b = embed((tf * im + (1.0 - im)).expand(ip.shape), fill=1.0)
+        if self._inpaint_model():
+            if ip is None or im is None:
+                raise ValueError("inpaint model requires inpaint tensors")
+            # timestep-independent, so computed once per call; pad lanes 0
+            x_add = embed(self.model.inpaint_projection(ip, im).float())
         return dict(packed=self._packed, x_T=embed(noise),
                     mem_rows=self._memory_rows(wavs), tmap=self._tmap,
-                    coefs=self._coefs, blend_a=blend_a, blend_b=blend_b,
-                    n_layers=cfg.n_layers, heads=cfg.heads,
-                    num_steps=self.num_steps, compute_dtype=self.fused_dtype)
+                    coefs=self._coefs[sample_alg], blend_a=blend_a,
+                    blend_b=blend_b, n_layers=cfg.n_layers, heads=cfg.heads,
+                    num_steps=self.num_steps, compute_dtype=self.fused_dtype,
+                    stochastic=sample_alg == "ddpm", seed=seed, x_add=x_add)
 
     def _fused_sample(self, wavs, pose_dim, pose_window_len, noise, ip, im,
-                      ramp):
+                      ramp, sample_alg, seed):
         out = fused_ddim_sample(**self.fused_args(
-            wavs, pose_dim, pose_window_len, noise, ip, im, ramp))
+            wavs, pose_dim, pose_window_len, noise, ip, im, ramp, sample_alg,
+            seed))
         return out[:, :, :pose_dim]
 
-    def _scan_sample(self, wavs, noise, ip, im, ramp):
-        memory = self.model.encode_memory(wavs)
+    def _model_fn(self, memory, inpaint_pose=None, inpaint_mask=None):
+        """``model_fn(x, t) -> eps`` over the hoisted memory (and, for the
+        inpaint model type, its conditioning tensors)."""
+        extra = {}
+        if self._inpaint_model():
+            if inpaint_pose is None or inpaint_mask is None:
+                raise ValueError("inpaint model requires inpaint tensors")
+            extra = {"inpaint_pose": inpaint_pose, "inpaint_mask": inpaint_mask}
 
         def model_fn(x, t):
-            return self.model.denoise(x, t, memory)
+            return self.model.denoise(x, t, memory, **extra)
 
+        return model_fn
+
+    def _scan_sample(self, wavs, noise, ip, im, ramp, sample_alg, generator,
+                     z_fn):
+        model_fn = self._model_fn(self.model.encode_memory(wavs), ip, im)
         denoise_fn = None
         if ip is not None:
             tf = 0.0 if ramp is None else ramp
@@ -212,9 +254,22 @@ class Generator:
                 return ((1.0 - tf) * im * ip + tf * im * x0_hat
                         + (1.0 - im) * x0_hat)
 
-        return ddim_sample_loop(self.sched, model_fn, noise,
-                                denoise_fn=denoise_fn,
-                                timestep_map=self.timestep_map)
+        if sample_alg == "ddim":
+            return ddim_sample_loop(self.sched, model_fn, noise,
+                                    denoise_fn=denoise_fn,
+                                    timestep_map=self.timestep_map)
+        step_noise = None
+        if z_fn is not None:
+            def step_noise(i):
+                return self._tensor(z_fn(i))
+        elif generator is not None and generator.device != self.device:
+            def step_noise(i):
+                return torch.randn(noise.shape, generator=generator,
+                                   device=generator.device).to(self.device)
+        return ddpm_sample_loop(self.sched, model_fn, noise,
+                                generator=generator, denoise_fn=denoise_fn,
+                                timestep_map=self.timestep_map,
+                                step_noise=step_noise)
 
     @torch.no_grad()
     def generate_sample(
@@ -229,15 +284,19 @@ class Generator:
         sample_alg: str = "ddim",
         trans_factor: Optional[float] = None,
         pose_seed_len: Optional[int] = None,
+        z_fn: Optional[Callable[[int], object]] = None,
     ) -> torch.Tensor:
         """One window batch -> (N, T, C) float32 poses on the device.
-        Without ``noise`` the initial noise is drawn from ``generator``."""
-        if sample_alg == "ddpm":
-            raise NotImplementedError(
-                "DDPM sampling is not ported yet (ROADMAP.md, queue 2: "
-                "stochastic DDPM)")
-        if sample_alg != "ddim":
+        Without ``noise`` the initial noise is drawn from ``generator``.
+        ``sample_alg="ddpm"`` draws its per-step noise from ``generator``
+        too: the fused path one seed for the kernel's own noise, the scan
+        path every step's z, or ``z_fn(step)`` when given (scan path only;
+        tests inject the JAX package's draws)."""
+        if sample_alg not in ("ddim", "ddpm"):
             raise ValueError(f"unknown sample_alg {sample_alg!r}")
+        if z_fn is not None and self.use_fused:
+            raise ValueError("z_fn feeds the scan sampler only "
+                             "(use_fused=False)")
         wavs = self._wavs(wavs)
         if wavs.ndim != 2:
             raise ValueError(f"wavs must be (N, T_wav), got {tuple(wavs.shape)}")
@@ -252,17 +311,26 @@ class Generator:
                     raise ValueError("trans_factor needs pose_seed_len")
                 ramp = self._tensor(make_trans_ramp(
                     trans_factor, pose_seed_len, pose_window_len))
+        if self._inpaint_model() and ip is None:
+            raise ValueError("inpaint model requires inpaint tensors")
+        gdev = generator.device if generator is not None else self.device
         if noise is None:
-            gdev = generator.device if generator is not None else self.device
             noise = torch.randn((n, pose_window_len, pose_dim),
                                 generator=generator, device=gdev)
         noise = self._tensor(noise)
         if self.use_fused:
+            seed = 0
+            if sample_alg == "ddpm":
+                # stays a tensor: no host round trip on the dispatch path
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=gdev, dtype=torch.int64
+                                     ).to(self.device)
             out = self._fused_sample(wavs, pose_dim, pose_window_len, noise,
-                                     ip, im, ramp)
+                                     ip, im, ramp, sample_alg, seed)
             self.last_sample_path = "fused"
             return out
-        out = self._scan_sample(wavs, noise, ip, im, ramp)
+        out = self._scan_sample(wavs, noise, ip, im, ramp, sample_alg,
+                                generator, z_fn)
         self.last_sample_path = "scan"
         return out
 
@@ -339,6 +407,87 @@ class Generator:
         return np.concatenate(outs, axis=0)
 
     # ------------------------------------------------------------------
+    def stream(
+        self,
+        wav_sr: int,
+        pose_dim: int,
+        pose_fps: int,
+        pose_window_len: int,
+        pose_seed_len: int,
+        generator: Optional[torch.Generator] = None,
+        smooth_trans: bool = True,
+        trans_factor: Optional[float] = None,
+        init_poses=None,
+        sample_alg: str = "ddim",
+        max_in_flight: int = 4,
+        noise_fn: Optional[Callable[[int, int], object]] = None,
+    ) -> "GestureStream":
+        """Streaming counterpart of :meth:`generate_sequence`: push audio
+        chunks of any size, receive pose chunks as they complete.
+
+        Windows are launched as soon as enough audio is buffered, the
+        seed-pose tail is carried across windows on the device, and the
+        host only waits when more than ``max_in_flight`` windows are
+        outstanding.  The output equals ``generate_sequence`` on the same
+        audio with the same ``noise_fn`` (called as ``noise_fn(0, window)``)
+        or the same generator state, provided the offline call's
+        ``batch_size >= N``: the offline path draws noise per
+        (batch chunk, window), the stream per window for the whole batch.
+        """
+        return GestureStream(self, wav_sr, pose_dim, pose_fps,
+                             pose_window_len, pose_seed_len, rng=generator,
+                             smooth_trans=smooth_trans,
+                             trans_factor=trans_factor, init_poses=init_poses,
+                             sample_alg=sample_alg,
+                             max_in_flight=max_in_flight, noise_fn=noise_fn)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def eval_bpd(
+        self,
+        poses,                                 # (N, T, C)
+        wavs,                                  # (N, T_wav)
+        generator: Optional[torch.Generator] = None,
+        pose_seed_len: Optional[int] = None,
+        t_block: int = 1,
+        noise=None,                            # (T_steps, N, T, C)
+    ) -> dict:
+        """The variational bound in bits/dim (``diffusion.bpd_loop``) with
+        the speech memory encoded once.
+
+        :param t_block: timesteps per model call: k timesteps batch into
+            one (k*N)-row call with the memory (and the inpaint tensors)
+            tiled k times.  A ``t_block`` that does not divide the
+            timestep count is clamped down to the largest divisor.  Each
+            timestep's noise is a function of (seed, t) only, so
+            ``t_block`` changes the speed and never the numbers (up to
+            float32 summation order).
+        :param noise: per-timestep noise, indexed by timestep, replacing
+            the draws from ``generator`` (tests inject the JAX package's).
+        """
+        T = self.num_steps
+        t_block = max(k for k in range(1, min(max(int(t_block), 1), T) + 1)
+                      if T % k == 0)
+        poses, wavs = self._tensor(poses), self._wavs(wavs)
+        memory = self.model.encode_memory(wavs)
+        ip = im = None
+        if self._inpaint_model():
+            if pose_seed_len is None:
+                raise ValueError("an inpaint model needs pose_seed_len")
+            ip = poses
+            im = torch.zeros(poses.shape[:2] + (1,), device=self.device)
+            im[:, :pose_seed_len] = 1.0
+        if t_block > 1:
+            memory = torch.cat([memory] * t_block, dim=0)
+            if ip is not None:
+                ip = torch.cat([ip] * t_block, dim=0)
+                im = torch.cat([im] * t_block, dim=0)
+        return bpd_loop(self.sched, self._model_fn(memory, ip, im), poses,
+                        generator=generator, timestep_map=self.timestep_map,
+                        t_block=t_block,
+                        noise=None if noise is None else self._tensor(noise))
+
+    # ------------------------------------------------------------------
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -370,3 +519,216 @@ class Generator:
         stats = (float(timings.mean()), float(timings.std()),
                  float(self.num_steps / (timings.mean() / 1e3)))
         return stats + (timings,) if return_raw else stats
+
+
+class GestureStream:
+    """Incremental window-by-window gesture generation over pushed audio.
+
+    Reproduces ``Generator.generate_sequence``'s window, seed and crossfade
+    semantics as a push API:
+
+        stream = generator.stream(sr, d_pose, fps, window, seed_len, gen)
+        for audio_chunk in mic:               # any chunk size
+            for poses in stream.push(audio_chunk):
+                play(poses)                   # (N, stride, d_pose)
+        for poses in stream.flush():
+            play(poses)                       # last chunk: up to window_len
+
+    ``push`` chunks are exactly ``stride`` frames; ``flush``'s final chunk
+    carries everything still owed and can be up to ``pose_window_len``
+    frames (the plan truncates to whole seconds), so size playback buffers
+    for ``pose_window_len``, not ``stride``.
+
+    Pipelining: a window's reverse process is launched as soon as its audio
+    is buffered.  On the card a launch is asynchronous on the current
+    stream, so the dispatch path holds no synchronise and no copy to the
+    host: the seed tail of window d-1 is sliced from its sample as a device
+    tensor, and samples are pulled to the host only when more than
+    ``max_in_flight`` windows are outstanding, or at flush.
+    """
+
+    def __init__(self, generator: Generator, wav_sr: int, pose_dim: int,
+                 pose_fps: int, pose_window_len: int, pose_seed_len: int,
+                 rng: Optional[torch.Generator] = None,
+                 smooth_trans: bool = True,
+                 trans_factor: Optional[float] = None, init_poses=None,
+                 sample_alg: str = "ddim", max_in_flight: int = 4,
+                 noise_fn: Optional[Callable[[int, int], object]] = None):
+        if not pose_seed_len < pose_window_len:
+            raise ValueError(
+                f"pose_seed_len ({pose_seed_len}) must be < pose_window_len "
+                f"({pose_window_len}) — stride would be <= 0")
+        self.gen = generator
+        self.wav_sr = wav_sr
+        self.pose_dim = pose_dim
+        self.pose_fps = pose_fps
+        self.window_len = pose_window_len
+        self.seed_len = pose_seed_len
+        self.stride = pose_window_len - pose_seed_len
+        self.wav_window_len = int(wav_sr * pose_window_len / pose_fps)
+        self.smooth_trans = smooth_trans
+        self.trans_factor = trans_factor
+        self.sample_alg = sample_alg
+        self.max_in_flight = max(1, max_in_flight)
+        self._rng = rng
+        self._noise_fn = noise_fn
+        self._init_tail = (None if init_poses is None
+                           else generator._tensor(init_poses))
+        self._buf = []                  # received audio chunks (np)
+        self._buf_offset = 0            # absolute index of _buf[0][..., 0]
+        self._received = 0
+        self._n = None                  # batch size, fixed by first push
+        self._next_div = 0              # next window index to dispatch
+        self._in_flight = []            # device samples, dispatch order
+        self._last_dispatched = None    # device sample of the newest window
+        self._emitted_idx = 0           # next window index to emit
+        self._prev_np = None            # last materialised sample (np)
+        self._emitted_frames = 0
+        self._mask = None               # (N, T, 1) device seed mask
+        self._finished = False
+
+    # -- internals -----------------------------------------------------
+    def _audio(self, start: int, end: int) -> np.ndarray:
+        """Buffered audio [start:end) zero-padded to the window length."""
+        full = np.concatenate(self._buf, axis=-1)
+        s = start - self._buf_offset
+        window = full[..., s:s + min(end, self._received) - start]
+        if window.shape[-1] < end - start:
+            window = np.pad(window, [(0, 0)] * (window.ndim - 1)
+                            + [(0, end - start - window.shape[-1])])
+        return window
+
+    def _compact(self) -> None:
+        """Drop buffered chunks wholly before the next window's start so a
+        long-running stream holds O(window) audio, not O(stream)."""
+        keep_from = int(self._next_div * self.stride
+                        / self.pose_fps * self.wav_sr)
+        while self._buf and (self._buf_offset + self._buf[0].shape[-1]
+                             <= keep_from):
+            self._buf_offset += self._buf[0].shape[-1]
+            self._buf.pop(0)
+
+    def _num_divisions(self, wav_len: int) -> int:
+        return window_plan(wav_len, self.wav_sr, self.pose_fps,
+                           self.window_len, self.seed_len)[1]
+
+    def _dispatch_ready(self, final_len: Optional[int] = None) -> None:
+        """Launch every window whose audio is available (all remaining ones
+        when ``final_len`` marks the end of the stream)."""
+        while True:
+            d = self._next_div
+            wav_start = int(d * self.stride / self.pose_fps * self.wav_sr)
+            wav_end = wav_start + self.wav_window_len
+            if final_len is None:
+                # launch only windows certainly in the FINAL plan.  Both
+                # checks are needed: the plan can SHRINK as audio grows
+                # (the -1 correction of window_plan), so membership in
+                # today's plan alone is unsafe, and the plan truncates to
+                # whole seconds, so arrival of the audio alone is unsafe; a
+                # fully arrived window that is in today's plan stays in
+                # every later plan.  A degenerate plan on the partial
+                # audio (window_plan raises when it owes frames but plans
+                # no window) just means nothing is confirmed yet.
+                try:
+                    confirmed = self._num_divisions(self._received)
+                except ValueError:
+                    confirmed = 0
+                if wav_end > self._received or d >= confirmed:
+                    return
+            elif d >= self._num_divisions(final_len):
+                return
+            wavs = self._audio(wav_start, wav_end)
+            ip = im = None
+            prev = self._init_tail if d == 0 else self._last_dispatched
+            if prev is not None:
+                dev = self.gen.device
+                if self._mask is None:
+                    self._mask = torch.zeros(self._n, self.window_len, 1,
+                                             device=dev)
+                    self._mask[:, :self.seed_len] = 1.0
+                ip = torch.zeros(self._n, self.window_len, self.pose_dim,
+                                 device=dev)
+                ip[:, :self.seed_len] = prev[:, -self.seed_len:]
+                im = self._mask
+            sample = self.gen.generate_sample(
+                wavs, self.pose_dim, self.window_len, generator=self._rng,
+                noise=None if self._noise_fn is None else self._noise_fn(0, d),
+                inpaint_poses=ip, inpaint_masks=im,
+                sample_alg=self.sample_alg, trans_factor=self.trans_factor,
+                pose_seed_len=self.seed_len)
+            self._in_flight.append(sample)
+            self._last_dispatched = sample
+            self._next_div += 1
+
+    def _emit(self, final: bool, seq_len: Optional[int] = None) -> np.ndarray:
+        """Bring the oldest in-flight sample to the host and build its
+        output chunk (stride frames; the final chunk is trimmed to
+        seq_len)."""
+        raw = self._in_flight.pop(0).cpu().numpy()
+        x = raw
+        if self.smooth_trans and self._emitted_idx > 0:
+            x = crossfade_head(raw, self._prev_np[:, -self.seed_len:],
+                               self.seed_len)
+        self._prev_np = raw
+        self._emitted_idx += 1
+        if final:
+            # the plan guarantees 1 <= remaining <= window_len; the clamp
+            # turns a planning bug into an empty chunk, not extra frames
+            chunk = x[:, : max(0, seq_len - self._emitted_frames)]
+        else:
+            chunk = x[:, : self.stride]
+        self._emitted_frames += chunk.shape[1]
+        return chunk
+
+    # -- public API ----------------------------------------------------
+    def push(self, audio) -> list:
+        """Feed an audio chunk (shape ``(T,)`` or ``(N, T)``, float audio
+        in [-1, 1]); returns the pose chunks completed so far, each exactly
+        ``(N, stride, pose_dim)``.  Waits for the card only when more than
+        ``max_in_flight`` windows are pending."""
+        if self._finished:
+            raise RuntimeError("stream already flushed")
+        if torch.is_tensor(audio):
+            audio = audio.detach().cpu().numpy()
+        chunk = np.asarray(audio)
+        # refused after the conversion, so that plain lists of integer PCM
+        # (32768x the trained scale) are caught like integer arrays
+        if not np.issubdtype(chunk.dtype, np.floating):
+            raise TypeError(f"audio has dtype {chunk.dtype}: expected float "
+                            "audio in [-1, 1]")
+        chunk = chunk.astype(np.float32, copy=False)
+        if chunk.ndim == 1:
+            chunk = chunk[None]
+        if self._n is None:
+            self._n = chunk.shape[0]
+        if chunk.shape[0] != self._n:
+            raise ValueError("batch size changed mid-stream")
+        self._buf.append(chunk)
+        self._received += chunk.shape[-1]
+        self._dispatch_ready()
+        self._compact()
+        out = []
+        # a popped window is final only if it is the stream's last, which is
+        # not known before flush; so at least one window stays pending here
+        while len(self._in_flight) > self.max_in_flight:
+            out.append(self._emit(final=False))
+        return out
+
+    def flush(self) -> list:
+        """End of audio: launch the remaining (zero-padded) windows and
+        return all remaining pose chunks (the final one up to
+        ``pose_window_len`` frames).  The total emitted length equals
+        ``generate_sequence``'s output for the same audio."""
+        if self._finished:
+            raise RuntimeError("stream already flushed")
+        self._finished = True
+        if self._n is None:
+            return []
+        self._dispatch_ready(final_len=self._received)
+        seq_len = window_plan(self._received, self.wav_sr, self.pose_fps,
+                              self.window_len, self.seed_len)[0]
+        out = []
+        while self._in_flight:
+            out.append(self._emit(final=not self._in_flight[1:],
+                                  seq_len=seq_len))
+        return out

@@ -2,7 +2,8 @@
 
 ``state_dict_from_jax(variables, cfg)`` is the exact inverse of the JAX
 package's ``interop/torch_import.py::import_torch_state_dict`` for the
-oneway decoder and the "s2g_v2"/"default" model types.  Input: the JAX
+oneway decoder and all three model types (the inpaint type's conditioning
+MLP is flax ``inpaint_proj/layers_{0,2,4}`` and ``proj.{0,2,4}`` here).  Input: the JAX
 ``{"params", "batch_stats"}`` tree as numpy arrays (anything
 ``np.asarray`` accepts).  Output: tensors under the reference checkpoint's
 names, which are the port modules' own names.
@@ -113,9 +114,8 @@ def state_dict_from_jax(variables: Mapping, cfg) -> "OrderedDict[str, torch.Tens
     if cfg.decoder_type != "oneway_cross_attention":
         raise NotImplementedError(
             f"decoder {cfg.decoder_type!r} is not ported yet")
-    if cfg.model_type not in ("s2g_v2", "default"):
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not ported yet")
+    if cfg.model_type not in ("s2g_v2", "default", "inpaint"):
+        raise ValueError(f"Unsupported model_type {cfg.model_type!r}")
     params, stats = variables["params"], variables["batch_stats"]
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     enc = params["speech_encoder"]
@@ -129,4 +129,7 @@ def state_dict_from_jax(variables: Mapping, cfg) -> "OrderedDict[str, torch.Tens
     _oneway_decoder(sd, "pose_decoder", params["decoder"], cfg.n_layers)
     if cfg.model_type == "s2g_v2":
         _linear(sd, "blend_layer", params["blend_layer"])
+    if cfg.model_type == "inpaint":
+        for i in (0, 2, 4):
+            _linear(sd, f"proj.{i}", params["inpaint_proj"][f"layers_{i}"])
     return sd

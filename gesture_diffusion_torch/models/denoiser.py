@@ -1,23 +1,29 @@
 """The conditional gesture denoiser (epsilon predictor).
 
 Port of ``gesture_diffusion_tpu/models/denoiser.py`` for the oneway
-decoder and the "s2g_v2" and "default" model types:
+decoder and all three model types:
 
   * ``encode_memory(wav)`` — timestep-independent speech conditioning, run
     once per clip by the samplers;
+  * ``inpaint_projection(pose, mask)`` — the inpaint type's additive
+    conditioning, timestep-independent too, so the fused sampler computes
+    it once per call;
   * ``denoise(x_t, t, speech_memory)`` — the per-step work: sinusoidal
-    timestep token + cross-attention decoder;
-  * ``forward(x_t, t, wav)`` composes both.
+    timestep token + cross-attention decoder (+ the inpaint projection);
+  * ``forward(x_t, t, wav)`` composes them.
 
 Model types: "default" memory = [t-token ; low ; mid ; high] along time;
 "s2g_v2" left-zero-pads the three streams to the longest, concatenates
-them on channels and blends them with ``blend_layer``.  Layout (N, T, C).
+them on channels and blends them with ``blend_layer``; "inpaint" is
+"default" plus x += MLP([seed_pose * mask ; mask]), an MLP that starts at
+zero (GLIDE-style).  Layout (N, T, C).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -26,7 +32,7 @@ import torch.nn.functional as F
 from .decoders import OnewayCrossAttention
 from .speech_encoder import HA2GSpeechEncoder
 
-MODEL_TYPES = ("default", "s2g_v2")
+MODEL_TYPES = ("default", "s2g_v2", "inpaint")
 
 
 def timestep_freqs(dim: int, max_period: float = 10000.0,
@@ -67,9 +73,9 @@ class DenoiserConfig:
     heads: int = 8
     n_layers: int = 4
     dropout: float = 0.0
-    model_type: str = "s2g_v2"            # default | s2g_v2
+    model_type: str = "s2g_v2"            # default | s2g_v2 | inpaint
     decoder_type: str = "oneway_cross_attention"
-    pose_seed_len: int = 10
+    pose_seed_len: int = 10               # inpaint only
 
 
 class GestureDenoiser(nn.Module):
@@ -87,6 +93,15 @@ class GestureDenoiser(nn.Module):
             heads=cfg.heads, n_layers=cfg.n_layers, d_out=cfg.d_pose)
         if cfg.model_type == "s2g_v2":
             self.blend_layer = nn.Linear(3 * cfg.d_model, cfg.d_model)
+        if cfg.model_type == "inpaint":
+            # the reference checkpoint's name for the conditioning MLP
+            self.proj = nn.Sequential(
+                nn.Linear(cfg.d_pose + 1, cfg.d_model), nn.SiLU(),
+                nn.Linear(cfg.d_model, cfg.d_model), nn.SiLU(),
+                nn.Linear(cfg.d_model, cfg.d_pose), nn.Dropout(cfg.dropout))
+            for lin in (self.proj[0], self.proj[2], self.proj[4]):
+                nn.init.zeros_(lin.weight)
+                nn.init.zeros_(lin.bias)
 
     def encode_memory(self, wav: torch.Tensor) -> torch.Tensor:
         """(N, T_wav) -> (N, T_mem, d_model) speech memory (no t-token)."""
@@ -98,14 +113,31 @@ class GestureDenoiser(nn.Module):
             return self.blend_layer(torch.cat(streams, dim=-1))
         return torch.cat([low, mid, high], dim=1)
 
+    def inpaint_projection(self, inpaint_pose: torch.Tensor,
+                           inpaint_mask: torch.Tensor) -> torch.Tensor:
+        """The inpaint type's additive conditioning,
+        MLP([pose * mask ; mask]) -> (N, T, d_pose); dropout is the
+        identity in eval mode."""
+        return self.proj(torch.cat([inpaint_pose * inpaint_mask, inpaint_mask],
+                                   dim=-1))
+
     def denoise(self, x_t: torch.Tensor, t: torch.Tensor,
-                speech_memory: torch.Tensor) -> torch.Tensor:
+                speech_memory: torch.Tensor,
+                inpaint_pose: Optional[torch.Tensor] = None,   # (N, T, d_pose)
+                inpaint_mask: Optional[torch.Tensor] = None,   # (N, T, 1)
+                ) -> torch.Tensor:
+        if self.cfg.model_type == "inpaint":
+            if inpaint_pose is None or inpaint_mask is None:
+                raise ValueError("inpaint model requires inpaint tensors")
+            x_t = x_t + self.inpaint_projection(inpaint_pose, inpaint_mask)
         t_token = self.diffusion_step_encoder(t)[:, None]     # (N, 1, D)
         # promote, never truncate the step embedding to the memory dtype
         mdt = torch.promote_types(t_token.dtype, speech_memory.dtype)
         memory = torch.cat([t_token.to(mdt), speech_memory.to(mdt)], dim=1)
         return self.pose_decoder(x_t, memory)
 
-    def forward(self, x_t: torch.Tensor, t: torch.Tensor,
-                wav: torch.Tensor) -> torch.Tensor:
-        return self.denoise(x_t, t, self.encode_memory(wav))
+    def forward(self, x_t: torch.Tensor, t: torch.Tensor, wav: torch.Tensor,
+                inpaint_pose: Optional[torch.Tensor] = None,
+                inpaint_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.denoise(x_t, t, self.encode_memory(wav), inpaint_pose,
+                            inpaint_mask)

@@ -1,50 +1,74 @@
-"""Fused DDIM sampler: the whole reverse process of the oneway denoiser in
-ONE CUDA kernel launch (``csrc/fused_ddim.cu``), plus its plain version.
+"""Fused diffusion sampler: the whole reverse process of the oneway
+denoiser in ONE CUDA kernel launch (``csrc/fused_ddim.cu``), plus its plain
+version.
 
 Replaces the TPU kernel ``gesture_diffusion_tpu/ops/fused_sampler.py``
-``fused_ddim_sample`` / ``_make_kernel`` (one ``pallas_call``), for its
-identity-blend and x0-blend DDIM (eta=0) variants.
+``fused_ddim_sample`` / ``_make_kernel`` (one ``pallas_call``) in every
+variant: DDIM (eta=0) and ancestral DDPM (``stochastic``), each with the
+identity blend or the x0 blend, the inpaint model type's ``x_add``, and
+windows and memories of any length up to 64 and 128 rows.
 
 Per step (mirrors ``models/denoiser.py`` + ``models/decoders.py``):
   token = emb_mem(step_mlp(temb[tmap[s]])) + pe[0]       (memory row 0)
   mem   = [token ; precomputed emb_mem(speech)+pe[1:]]
-  h     = emb_x(x) + pe[:T]
+  h     = emb_x(x + x_add) + pe[:T]
   L x { LN -> merged QKV -> 3-tap dconv -> attention -> out-proj;
         LN -> cross q + dconv, memory KV + dconv -> cross-attention;
         LN -> squared-ReLU FF }
   eps   = out_head(LN(h))
-  identity blend:  x = (c2*c0) x + (c3 - c2*c1) eps
-  x0 blend:        x0 = a + b*(c0 x - c1 eps);  eps = (c0 x - x0)/c1;
-                   x = c2 x0 + c3 eps
+  DDIM, identity blend:  x = (c2*c0) x + (c3 - c2*c1) eps
+  DDIM, x0 blend:        x0 = a + b*(c0 x - c1 eps);  eps = (c0 x - x0)/c1;
+                         x = c2 x0 + c3 eps
+  DDPM, identity blend:  x = (c2*c0 + c3) x - (c2*c1) eps + sigma z
+  DDPM, x0 blend:        x0 = a + b*(c0 x - c1 eps);
+                         x = c2 x0 + c3 x + sigma z
+(DDPM: c2, c3 are the posterior mean coefficients, ``ddpm_coefficients``.)
 
 Compute-dtype policy (both the kernel and ``fused_ddim_sample_plain``):
 the operands of every product (projections, Q.K^T, P.V) are rounded to
 ``compute_dtype`` and accumulated in float32; everything else stays
 float32 — the residual stream h, LayerNorm, softmax, biases, the dconv,
-and the state x / eps.  The kernel takes bfloat16 only (Hopper tensor
-cores); the plain version also takes float32, which the CPU tests use
-against the JAX kernel in float32.
+the state x, eps and the noise z.  The kernel takes bfloat16 only (Hopper
+tensor cores); the plain version also takes float32, which the CPU tests
+use against the JAX kernel in float32.
+
+Noise of the stochastic sampler, defined once for the kernel and the plain
+version (``fused_noise``): z for element (clip, row r, lane n) of step s
+is Box-Muller (cosine branch) of two words of Philox4x32-10 with
+key = (seed low word, seed high word) and counter
+((r // 2) * Dp_pad + n, s, clip, 0); words 0, 1 serve the even row of the
+pair and words 2, 3 the odd one.  u = top 23 bits / 2**23,
+z = sqrt(-2 log(max(u1, 1e-12))) cos(2 pi u2).  Pad lanes draw noise like
+any other lane; the caller slices them off.
 
 The timestep token depends on the step, not the clip, so the wrapper
 precomputes an (S, D) token table with plain torch ops before the launch
 (``step_tokens``); the speech memory rows are precomputed by the caller.
 
-What bounds the kernel on an H100, and what the design does about it:
-the TPU kept the ~8.7 MB of bf16 weights resident in its 16 MB VMEM for
-all steps.  No SM holds that (227 KB of shared memory), so each thread
-block (one per clip) re-reads every weight from L2 on every step, and
-stays bound by L2 bandwidth: batch 1 uses 1 of 132 SMs, batch 64 streams
-~64 x 8.7 MB per step out of L2.  The design keeps everything a clip
-produces (h, the operands, q/k/v, FF hidden) in shared memory so that
-the weight stream is the only traffic; later work (weights sharded over
-SMs, clips sharing a block, wgmma/TMA) attacks the stream itself.
-``bound_ms`` in ``chip_smoke.py`` gives the least time for the work.
+Memory design of the kernel: only memory rows 0 and 1 change from step to
+step (the token, and its neighbour through the dconv), so the kernel
+computes every layer's memory K and V once, before the step loop, into a
+per-clip scratch that the wrapper allocates (``scratch_elems``), and
+recomputes rows 0 and 1 per step.  The memory takes no shared memory,
+whatever its length; cross-attention loads its K and V fragments from the
+scratch, which stays in L2.  Both attentions run on the tensor cores, 16
+queries per pass, with the softmax in float32 between the two products.
+
+What bounds the kernel on an H100: no SM holds the ~8.7 MB of bf16 weights
+(227 KB of shared memory), so each thread block (one per clip) re-reads
+every weight from L2 on every step, and its matmul k-loops run on the few
+rows of one clip: batch 1 uses 1 of 132 SMs.  The design keeps what a step
+produces in shared memory so that the weight stream is the main traffic;
+later work (weights sharded over SMs, clips sharing a block, wgmma/TMA)
+attacks the stream itself.  ``bound_ms`` in ``chip_smoke.py`` gives the
+least time for the work.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -56,10 +80,12 @@ from ..models.decoders import LN_EPS
 from ..models.denoiser import timestep_freqs
 
 # kernel limits (csrc/fused_ddim.cu): one block of NWARPS warps per clip,
-# epilogue strips of 32 columns, at most 4 row tiles of 16 per side
+# epilogue strips of 32 columns, at most 4 row tiles of 16 window rows,
+# 4 key chunks of 32 memory rows, heads of up to 4 tiles of 16 dims
 NWARPS = 8
 STRIP = 32
-MAX_ROWS = 64
+MAX_T = 64
+MAX_MEM = 128
 MAX_DK = 64
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block can use
 
@@ -227,6 +253,74 @@ def ddim_coefficients(sched) -> torch.Tensor:
     return torch.from_numpy(c)
 
 
+def ddpm_coefficients(sched) -> torch.Tensor:
+    """(S, 5) float32 for ancestral sampling: [sqrt_recip_acp,
+    sqrt_recipm1_acp, posterior_mean_coef1, posterior_mean_coef2, noise std
+    exp(0.5 * posterior_log_variance_clipped)]; the std is zero at step 0
+    (no noise at t == 0).  ``fused_ddim_sample(stochastic=True)`` needs
+    this 5-column layout."""
+    sigma = np.exp(0.5 * sched.posterior_log_variance_clipped.cpu().numpy())
+    sigma[0] = 0.0
+    c = np.stack([
+        sched.sqrt_recip_alphas_cumprod.cpu().numpy(),
+        sched.sqrt_recipm1_alphas_cumprod.cpu().numpy(),
+        sched.posterior_mean_coef1.cpu().numpy(),
+        sched.posterior_mean_coef2.cpu().numpy(),
+        sigma,
+    ], axis=1).astype(np.float32)
+    return torch.from_numpy(c)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(high, low) 32-bit words of a * b for a constant a < 2**32 and int64
+    words b in [0, 2**32), through 16-bit halves so that nothing leaves
+    int64."""
+    p0, p1 = a * (b & 0xFFFF), a * (b >> 16)
+    return (p1 + (p0 >> 16)) >> 16, (((p1 & 0xFFFF) << 16) + p0) & _M32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 (Salmon et al., Random123) with integer tensor ops:
+    counter words c0..c3 and key words k0, k1 (int64 tensors or ints in
+    [0, 2**32), broadcast together) -> four int64 tensors of 32-bit words."""
+    c0, c1, c2, c3, k0, k1 = (torch.as_tensor(v, dtype=torch.int64)
+                              for v in (c0, c1, c2, c3, k0, k1))
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+    return c0, c1, c2, c3
+
+
+def _box_muller(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One N(0, 1) draw per pair of 32-bit words (the cosine branch)."""
+    u1 = (a >> 9).float() * 2.0 ** -23
+    u2 = (b >> 9).float() * 2.0 ** -23
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+    return r * torch.cos((2.0 * math.pi) * u2)
+
+
+def fused_noise(seed, step: int, n: int, t: int, dp: int,
+                device=None) -> torch.Tensor:
+    """(N, T, Dp_pad) float32 noise of the stochastic sampler at ``step``,
+    as the kernel draws it (module docstring).  ``seed`` is an int or a
+    one-element int64 tensor; only its low 64 bits count."""
+    seed = torch.as_tensor(seed, dtype=torch.int64).reshape(())
+    device = seed.device if device is None else device
+    seed = seed.to(device)
+    pairs = (t + 1) // 2
+    c0 = torch.arange(pairs * dp, dtype=torch.int64, device=device
+                      ).view(1, pairs, dp)
+    clip = torch.arange(n, dtype=torch.int64, device=device).view(n, 1, 1)
+    w = philox4x32_10(c0, step, clip, 0, seed & _M32, (seed >> 32) & _M32)
+    z = torch.stack([_box_muller(w[0], w[1]), _box_muller(w[2], w[3])], dim=2)
+    return z.reshape(n, 2 * pairs, dp)[:, :t]
+
+
 def _r(x: torch.Tensor, cd) -> torch.Tensor:
     """Round a product operand to the compute dtype (kept as float32)."""
     return x if cd == torch.float32 else x.to(cd).float()
@@ -280,25 +374,37 @@ def _attention(q, k, v, heads: int, cd) -> torch.Tensor:
 @torch.no_grad()
 def fused_ddim_sample_plain(packed: PackedDenoiser, x_T, mem_rows, tmap, coefs,
                             blend_a, blend_b, n_layers: int, heads: int,
-                            num_steps: int, compute_dtype=torch.bfloat16):
+                            num_steps: int, compute_dtype=torch.bfloat16,
+                            stochastic: bool = False, seed=0, x_add=None,
+                            z=None):
     """The fused sampler's function in plain torch ops on the packed
     weights, with the kernel's arguments and compute-dtype policy.  The
     CPU path of ``fused_ddim_sample`` and the card's yardstick for the
-    kernel; not the serving path when a card is present."""
+    kernel; not the serving path when a card is present.
+
+    With ``stochastic`` it draws the kernel's noise (``fused_noise``) from
+    the same ``seed``; ``z`` of shape (S, N, T, Dp_pad), when given,
+    replaces the drawn noise (``z[s]`` at step s): the hook that lets a
+    test hold it against another sampler's draws."""
     _check_args(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
-                n_layers, heads, num_steps)
+                n_layers, heads, num_steps, stochastic, x_add)
     p, cd = packed, compute_dtype
     d_model = p.w_emm.shape[0]
+    n, t, dp = x_T.shape
+    if z is not None and tuple(z.shape) != (num_steps, n, t, dp):
+        raise ValueError(f"z shape {tuple(z.shape)} must be "
+                         f"{(num_steps, n, t, dp)}")
     tok = step_tokens(p, tmap, cd)
     # host copy of the coefficients; scalar products in float32, as the kernel's
-    c = coefs[:, :4].detach().cpu().numpy().astype(np.float32)
-    pe_x = p.pe_x[: x_T.shape[1]].float()
+    c = coefs.detach().cpu().numpy().astype(np.float32)
+    pe_x = p.pe_x[:t].float()
     mem = mem_rows.float().clone()
     x = x_T.float()
     for i in range(num_steps):
         s = num_steps - 1 - i
         mem[:, 0] = tok[s]
-        h = _mm(x, p.w_embx, cd) + p.b_embx.float() + pe_x
+        xin = x if x_add is None else x + x_add
+        h = _mm(xin, p.w_embx, cd) + p.b_embx.float() + pe_x
         for l in range(n_layers):
             qkv = _dconv(_mm(_ln(h), p.self_wqkv[l], cd) + p.self_bqkv[l].float(),
                          p.self_dconv[l], p.self_dbias[l])
@@ -315,8 +421,17 @@ def fused_ddim_sample_plain(packed: PackedDenoiser, x_T, mem_rows, tmap, coefs,
             f = torch.relu(_mm(_ln(h), p.ff_w1[l], cd) + p.ff_b1[l].float())
             h = h + (_mm(f * f, p.ff_w2[l], cd) + p.ff_b2[l].float())
         eps = _mm(_ln(h), p.w_out, cd) + p.b_out
-        c0, c1, c2, c3 = c[s]
-        if blend_a is None:
+        c0, c1, c2, c3 = c[s, :4]
+        if stochastic:
+            zs = z[s] if z is not None else fused_noise(seed, s, n, t, dp,
+                                                        x.device)
+            if blend_a is None:
+                x = (float(c2 * c0 + c3) * x - float(c2 * c1) * eps
+                     + float(c[s, 4]) * zs)
+            else:
+                x0 = blend_a + blend_b * (float(c0) * x - float(c1) * eps)
+                x = float(c2) * x0 + float(c3) * x + float(c[s, 4]) * zs
+        elif blend_a is None:
             x = float(c2 * c0) * x + float(c3 - c2 * c1) * eps
         else:
             x0 = blend_a + blend_b * (float(c0) * x - float(c1) * eps)
@@ -326,7 +441,8 @@ def fused_ddim_sample_plain(packed: PackedDenoiser, x_T, mem_rows, tmap, coefs,
 
 
 def _check_args(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
-                n_layers, heads, num_steps) -> None:
+                n_layers, heads, num_steps, stochastic=False,
+                x_add=None) -> None:
     n, t, dp = x_T.shape
     d_model = packed.w_emm.shape[0]
     if dp != packed.w_embx.shape[0]:
@@ -347,55 +463,79 @@ def _check_args(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
         raise ValueError("blend_a and blend_b must both be given or both None")
     if blend_a is not None and (blend_a.shape != x_T.shape or blend_b.shape != x_T.shape):
         raise ValueError("blend tensors must match x_T's shape")
+    if coefs.ndim != 2 or coefs.shape[1] < (5 if stochastic else 4):
+        raise ValueError(
+            "stochastic=True needs the 5-column ddpm_coefficients() layout, "
+            "DDIM the 4-column ddim_coefficients() one "
+            f"(got {tuple(coefs.shape)})")
+    if x_add is not None and x_add.shape != x_T.shape:
+        raise ValueError(f"x_add shape {tuple(x_add.shape)} must match x_T "
+                         f"{tuple(x_T.shape)}")
 
 
 def _align128(b: int) -> int:
     return (b + 127) // 128 * 128
 
 
-def smem_bytes(t: int, n_mem: int, d_model: int, dp_pad: int, ff_chunk: int) -> int:
+def smem_bytes(t: int, d_model: int, dp_pad: int, ff_chunk: int,
+               half: bool = False) -> int:
     """Dynamic shared memory of one block; mirrors ``make_layout`` in
-    ``csrc/fused_ddim.cu``."""
-    mtx, mtm = -(-t // 16), -(-n_mem // 16)
+    ``csrc/fused_ddim.cu``.  The memory length does not enter: the memory
+    K and V live in the global scratch.  ``half``: a warp stages its
+    32-column strip as two 16-column halves."""
+    mtx = -(-t // 16)
     lda, ldm = max(d_model, dp_pad) + 8, d_model + 8
-    big = max(t * (3 * d_model + 2) * 2,
-              _align128(t * (d_model + 2) * 2) + n_mem * (2 * d_model + 2) * 2,
-              16 * mtx * (ff_chunk + 8) * 2)
-    return (_align128(t * dp_pad * 4) + _align128(t * d_model * 4)
-            + _align128(16 * mtx * lda * 2) + _align128(16 * mtm * ldm * 2)
-            + _align128(big) + _align128(NWARPS * 16 * max(mtx, mtm) * STRIP * 4))
+    cq = _align128(t * (d_model + 8) * 2)
+    big = max(16 * mtx * (3 * d_model + 8) * 2, cq + 16 * ldm * 2,
+              16 * mtx * (ff_chunk + 8) * 2, 16 * mtx * ldm * 2)
+    stage_warp = max(16 * mtx * (STRIP // 2 if half else STRIP), 16 * MAX_DK)
+    return (_align128(t * d_model * 4) + _align128(16 * mtx * lda * 2)
+            + _align128(big) + _align128(NWARPS * stage_warp * 4))
 
 
-def smem_plan(t: int, n_mem: int, d_model: int, dp_pad: int, ffn: int):
-    """(bytes, FF chunk): halve the FF hidden chunk until a block fits."""
-    fc = ffn
-    while (smem_bytes(t, n_mem, d_model, dp_pad, fc) > SMEM_LIMIT
-           and fc % (2 * STRIP) == 0):
-        fc //= 2
-    return smem_bytes(t, n_mem, d_model, dp_pad, fc), fc
+def smem_plan(t: int, d_model: int, dp_pad: int, ffn: int):
+    """(bytes, FF chunk, half): with full-strip staging first, then with
+    half strips, halve the FF hidden chunk until a block fits."""
+    for half in (False, True):
+        fc = ffn
+        while (smem_bytes(t, d_model, dp_pad, fc, half) > SMEM_LIMIT
+               and fc % (2 * STRIP) == 0):
+            fc //= 2
+        if smem_bytes(t, d_model, dp_pad, fc, half) <= SMEM_LIMIT:
+            break
+    return smem_bytes(t, d_model, dp_pad, fc, half), fc, half
 
 
-def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int) -> int:
-    """Raise on what the kernel does not take; return its FF chunk."""
+def scratch_elems(n_mem: int, d_model: int, n_layers: int) -> int:
+    """bfloat16 elements of one clip's memory K/V scratch: per layer one
+    row of [K | V] per memory row, n_mem rounded up to whole 16-row tiles."""
+    return n_layers * 2 * d_model * _round_up(n_mem, 16)
+
+
+def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int):
+    """Raise on what the kernel does not take; return (FF chunk, half)."""
     n, t, dp = x_T.shape
     n_mem, d_model = mem_rows.shape[1], packed.w_emm.shape[0]
     ffn, dk = packed.ff_w1.shape[2], d_model // heads
-    if not (1 <= t <= MAX_ROWS and 2 <= n_mem <= MAX_ROWS):
-        raise ValueError(f"kernel takes windows and memories of at most "
-                         f"{MAX_ROWS} rows (got T={t}, n_mem={n_mem})")
-    if dk > MAX_DK or dk % 2:
-        raise ValueError(f"kernel takes an even head width <= {MAX_DK} (got {dk})")
+    if not (1 <= t <= MAX_T and 2 <= n_mem <= MAX_MEM):
+        raise ValueError(f"kernel takes windows of at most {MAX_T} rows and "
+                         f"memories of at most {MAX_MEM} (got T={t}, "
+                         f"n_mem={n_mem})")
+    if dk > MAX_DK or dk % 16:
+        raise ValueError(f"kernel takes a head width that is a multiple of 16 "
+                         f"up to {MAX_DK} (got {dk})")
     if d_model % STRIP or dp % STRIP or ffn % STRIP:
         raise ValueError(f"kernel needs d_model, padded d_pose and the FF width "
                          f"to be multiples of {STRIP}")
-    nbytes, fc = smem_plan(t, n_mem, d_model, dp, ffn)
+    nbytes, fc, half = smem_plan(t, d_model, dp, ffn)
     if nbytes > SMEM_LIMIT or fc % STRIP or ffn % fc:
         raise ValueError(f"kernel's shared-memory plan needs {nbytes} bytes "
-                         f"> {SMEM_LIMIT} (T={t}, n_mem={n_mem}, D={d_model})")
-    return fc
+                         f"> {SMEM_LIMIT} (T={t}, D={d_model})")
+    return fc, half
 
 
 _LIB = None
+N_PTRS, N_DIMS = 35, 12
 
 
 def _library():
@@ -403,23 +543,49 @@ def _library():
     if _LIB is None:
         from .kernel_build import load_library
 
-        lib = load_library("fused_ddim")
-        lib.fused_ddim_launch.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-        lib.fused_ddim_launch.restype = ctypes.c_int
-        lib.fused_ddim_smem_bytes.argtypes = [ctypes.c_int] * 5
-        lib.fused_ddim_smem_bytes.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind_library(load_library("fused_ddim"))
     return _LIB
 
 
-def _transposed(w: torch.Tensor) -> torch.Tensor:
-    return w.transpose(-1, -2).contiguous()
+def bind_library(lib):
+    """Set the ctypes signatures of a built ``csrc/fused_ddim.cu``."""
+    lib.fused_ddim_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+    lib.fused_ddim_launch.restype = ctypes.c_int
+    lib.fused_ddim_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_ddim_smem_bytes.restype = ctypes.c_int
+    lib.fused_ddim_scratch_elems.argtypes = [ctypes.c_int] * 3
+    lib.fused_ddim_scratch_elems.restype = ctypes.c_longlong
+    return lib
+
+
+#: product weights the kernel reads transposed, (N, K) row-major, so that a
+#: B fragment is 32-bit loads along k
+_TRANSPOSED = ("w_embx", "self_wqkv", "self_wo", "cross_wq", "cross_wkv",
+               "cross_wo", "ff_w1", "ff_w2", "w_out")
+_KERNEL_SIDE: dict = {}
+
+
+def kernel_weights(packed: PackedDenoiser) -> dict:
+    """The pack's product weights as the kernel reads them (transposed
+    copies, ~9 MB at the flagship), made once per pack and kept for as
+    long as the pack lives: the entry is keyed on the pack's ``w_embx``
+    tensor and dropped when that tensor is freed, so a caller that drops
+    its cached pack (``Generator.update_variables``) drops these too."""
+    key = id(packed.w_embx)
+    hit = _KERNEL_SIDE.get(key)
+    if hit is None:
+        hit = {name: getattr(packed, name).transpose(-1, -2).contiguous()
+               for name in _TRANSPOSED}
+        _KERNEL_SIDE[key] = hit
+        weakref.finalize(packed.w_embx, _KERNEL_SIDE.pop, key, None)
+    return hit
 
 
 def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
-                     n_layers, heads, num_steps, compute_dtype):
+                     n_layers, heads, num_steps, compute_dtype,
+                     stochastic=False, seed=0, x_add=None):
     global launches
     if compute_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel computes with bfloat16 operands only "
@@ -431,38 +597,45 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
             raise ValueError(f"packed.{name} must be a contiguous {want} tensor "
                              f"on {dev} (got {w.dtype} on {w.device})")
     for name, a in (("x_T", x_T), ("mem_rows", mem_rows), ("blend_a", blend_a),
-                    ("blend_b", blend_b)):
+                    ("blend_b", blend_b), ("x_add", x_add)):
         if a is not None and (a.device != dev or a.dtype != torch.float32
                               or not a.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-    fc = _kernel_plan(packed, x_T, mem_rows, heads)
+    fc, half = _kernel_plan(packed, x_T, mem_rows, heads)
     n, t, dp = x_T.shape
+    d_model = packed.w_emm.shape[0]
     mem = mem_rows.to(torch.bfloat16)
     tok = step_tokens(packed, tmap, compute_dtype).to(torch.bfloat16).contiguous()
-    coef4 = coefs[:, :4].to(dev, torch.float32).contiguous()
+    # five columns for either sampler; DDIM leaves the last one unread
+    coef5 = torch.zeros((num_steps, 5), dtype=torch.float32, device=dev)
+    ncol = min(coefs.shape[1], 5)
+    coef5[:, :ncol] = coefs[:, :ncol].to(dev, torch.float32)
+    # a seed drawn on the card stays there: the kernel reads it from memory
+    seed_t = torch.as_tensor(seed, dtype=torch.int64).reshape(1).to(dev)
     out = torch.empty_like(x_T)
-    p = packed
-    # the kernel reads product weights transposed, (N, K) row-major, so its
-    # B fragments are 32-bit loads along k; ~9 MB copied per call
-    kt = _transposed
-    tensors = [x_T, out, mem, tok, coef4, blend_a, blend_b,
-               kt(p.w_embx), p.b_embx, p.pe_x,
-               kt(p.self_wqkv), p.self_bqkv, p.self_dconv, p.self_dbias,
-               kt(p.self_wo), p.self_bo,
-               kt(p.cross_wq), p.cross_bq, kt(p.cross_wkv), p.cross_bkv,
+    # zeroed: attention loads the pad rows of the last 16-row tile
+    kv = torch.zeros((n, scratch_elems(mem.shape[1], d_model, n_layers)),
+                     dtype=torch.bfloat16, device=dev)
+    p, kt = packed, kernel_weights(packed)
+    tensors = [x_T, out, mem, tok, coef5, blend_a, blend_b, x_add, kv, seed_t,
+               kt["w_embx"], p.b_embx, p.pe_x,
+               kt["self_wqkv"], p.self_bqkv, p.self_dconv, p.self_dbias,
+               kt["self_wo"], p.self_bo,
+               kt["cross_wq"], p.cross_bq, kt["cross_wkv"], p.cross_bkv,
                p.cross_dq, p.cross_dqb, p.cross_dkv, p.cross_dkvb,
-               kt(p.cross_wo), p.cross_bo,
-               kt(p.ff_w1), p.ff_b1, kt(p.ff_w2), p.ff_b2, kt(p.w_out), p.b_out]
-    ptrs = (ctypes.c_void_p * len(tensors))(
+               kt["cross_wo"], p.cross_bo,
+               kt["ff_w1"], p.ff_b1, kt["ff_w2"], p.ff_b2, kt["w_out"], p.b_out]
+    ptrs = (ctypes.c_void_p * N_PTRS)(
         *[None if a is None else a.data_ptr() for a in tensors])
-    dims = (ctypes.c_int * 10)(n, t, mem.shape[1], p.w_emm.shape[0], dp,
-                               p.ff_w1.shape[2], n_layers, heads, num_steps, fc)
-    # the launch is asynchronous: the temporaries above (mem, tok, coef4,
-    # the transposed weights) may be freed on return because the caching
+    dims = (ctypes.c_int * N_DIMS)(n, t, mem.shape[1], d_model, dp,
+                                   p.ff_w1.shape[2], n_layers, heads, num_steps,
+                                   fc, int(half), int(bool(stochastic)))
+    # the launch is asynchronous: the temporaries above (mem, tok, coef5,
+    # seed_t, the scratch) may be freed on return because the caching
     # allocator only reuses their blocks for work queued after the kernel
     # on this same stream
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().fused_ddim_launch(ptrs, len(tensors), dims, len(dims),
+    rc = _library().fused_ddim_launch(ptrs, N_PTRS, dims, N_DIMS,
                                       ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_ddim kernel launch failed: CUDA error {rc}")
@@ -476,7 +649,8 @@ def fused_ddim_sample(
     mem_rows: torch.Tensor,     # (N, n_mem, D) f32; row 0 = token slot,
                                 # rows 1.. = emb_mem(speech) + pe[1:]
     tmap: torch.Tensor,         # (S,) respaced -> original timestep
-    coefs: torch.Tensor,        # (S, 4) f32 ddim_coefficients
+    coefs: torch.Tensor,        # (S, 4) ddim_coefficients, or (S, 5)
+                                # ddpm_coefficients with stochastic
     blend_a: Optional[torch.Tensor],   # (N, T, Dp_pad) f32, or None with
     blend_b: Optional[torch.Tensor],   # blend_b: identity blend
     n_layers: int,
@@ -484,25 +658,22 @@ def fused_ddim_sample(
     num_steps: int,
     compute_dtype=torch.bfloat16,
     stochastic: bool = False,
-    x_add: Optional[torch.Tensor] = None,
+    seed=0,                     # int or one-element int64 tensor
+    x_add: Optional[torch.Tensor] = None,   # (N, T, Dp_pad) f32
 ) -> torch.Tensor:
     """(N, T, Dp_pad) float32 x_0.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic DDPM in the fused sampler is not ported yet "
-            "(ROADMAP.md, queue 2: stochastic DDPM with a Philox generator)")
-    if x_add is not None:
-        raise NotImplementedError(
-            "the inpaint x_add branch is not ported yet "
-            "(ROADMAP.md, queue 2: inpaint x_add)")
+    tensors launch the kernel or raise.
+
+    ``stochastic`` runs ancestral DDPM with the noise of ``fused_noise``
+    drawn from ``seed``; ``x_add`` is a loop-invariant term added to the
+    state before the input projection on every step (the inpaint model
+    type's conditioning)."""
     _check_args(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
-                n_layers, heads, num_steps)
+                n_layers, heads, num_steps, stochastic, x_add)
+    args = (packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b, n_layers,
+            heads, num_steps, compute_dtype, stochastic, seed, x_add)
     if x_T.device.type == "cpu":
-        return fused_ddim_sample_plain(packed, x_T, mem_rows, tmap, coefs,
-                                       blend_a, blend_b, n_layers, heads,
-                                       num_steps, compute_dtype)
+        return fused_ddim_sample_plain(*args)
     if x_T.device.type != "cuda":
         raise ValueError(f"fused_ddim_sample runs on cuda or cpu, not {x_T.device}")
-    return _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a,
-                            blend_b, n_layers, heads, num_steps, compute_dtype)
+    return _fused_ddim_cuda(*args)

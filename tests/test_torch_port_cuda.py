@@ -9,6 +9,7 @@ the CUDA toolkit are installed:
 test skips.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,7 +41,7 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def _inputs(n, t, n_mem, blend, seed):
+def _inputs(n, t, n_mem, blend, seed, x_add=False):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.zeros(n, t, 128, device="cuda")
     x[..., :D_POSE] = torch.randn(n, t, D_POSE, generator=g, device="cuda")
@@ -51,12 +52,17 @@ def _inputs(n, t, n_mem, blend, seed):
         a[:, :3, :D_POSE] = 0.5 * torch.randn(n, 3, D_POSE, generator=g, device="cuda")
         b = torch.ones_like(x)
         b[:, :3, :D_POSE] = 0.575
-    return x, mem, a, b
+    if not x_add:
+        return x, mem, a, b
+    xa = torch.zeros_like(x)
+    xa[..., :D_POSE] = 0.3 * torch.randn(n, t, D_POSE, generator=g, device="cuda")
+    return x, mem, a, b, xa
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,n_mem,blend", [
-    (1, T, 16, False), (3, T, 16, True), (5, 40, 32, True), (2, 34, 47, False)])
+    (1, T, 16, False), (3, T, 16, True), (5, 40, 32, True), (2, 34, 47, False),
+    (2, 40, 92, False), (2, 10, 13, True), (1, 64, 128, True), (1, 49, 2, False)])
 def test_kernel_matches_plain(card, n, t, n_mem, blend):
     p = fs.pack_oneway_denoiser(card, D_POSE, t)
     sched, tmap = make_diffusion("linear", 100, "ddim10")
@@ -70,6 +76,94 @@ def test_kernel_matches_plain(card, n, t, n_mem, blend):
     ref = fs.fused_ddim_sample_plain(*args)
     assert torch.isfinite(k).all()
     assert _rel(k, ref) < BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,n_mem,blend,x_add,stochastic", [
+    (2, T, 16, True, True, False),        # x_add with the blend
+    (3, T, 16, False, False, True),       # DDPM, identity update
+    (2, T, 16, True, False, True),        # DDPM, blend update
+    (2, 40, 92, True, True, True),        # all of them at a 92-row memory
+    (1, 64, 128, False, True, True)])     # the longest window and memory
+def test_new_variants_match_plain(card, n, t, n_mem, blend, x_add, stochastic):
+    p = fs.pack_oneway_denoiser(card, D_POSE, t)
+    sched, tmap = make_diffusion("linear", 100, "ddim10")
+    x, mem, a, b, xa = _inputs(n, t, n_mem, blend, seed=n + t, x_add=True)
+    coefs = (fs.ddpm_coefficients(sched) if stochastic
+             else fs.ddim_coefficients(sched)).cuda()
+    args = (p, x, mem, tmap.cuda(), coefs, a, b, N_LAYERS, 8,
+            sched.num_timesteps)
+    kw = dict(stochastic=stochastic, seed=torch.tensor([77], device="cuda"),
+              x_add=xa if x_add else None)
+    before = fs.launches
+    k = fs.fused_ddim_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 1
+    ref = fs.fused_ddim_sample_plain(*args, **kw)
+    assert torch.isfinite(k).all()
+    assert _rel(k, ref) < BAR
+    if stochastic:
+        other = fs.fused_ddim_sample(*args, **{**kw, "seed": 78})
+        assert _rel(other, ref) > BAR            # the seed is felt
+
+
+@pytest.mark.cuda
+def test_kernel_noise_is_the_plain_noise(card):
+    """One step with coefficients (0, 0, 0, 0, 1) returns z itself."""
+    p = fs.pack_oneway_denoiser(card, D_POSE, 40)
+    x, mem, _, _ = _inputs(3, 40, 16, False, seed=5)
+    coefs = torch.tensor([[0.0, 0.0, 0.0, 0.0, 1.0]], device="cuda")
+    seed = (9 << 32) | 4242
+    z = fs.fused_ddim_sample(p, x, mem, torch.tensor([0], device="cuda"), coefs,
+                             None, None, N_LAYERS, 8, 1, stochastic=True,
+                             seed=seed)
+    ref = fs.fused_noise(seed, 0, 3, 40, 128, device="cuda")
+    # the card's logf/cosf against torch.log/torch.cos: last bits only
+    assert float((z - ref).abs().max()) < 1e-5
+    assert abs(float(z.mean())) < 0.05 and abs(float(z.std()) - 1.0) < 0.05
+
+
+@pytest.mark.cuda
+def test_inpaint_generator_runs_ddpm_fused_on_card(card):
+    model = GestureDenoiser(DenoiserConfig(d_pose=D_POSE, n_layers=N_LAYERS,
+                                           model_type="inpaint"))
+    init_random_(model, torch.Generator().manual_seed(0))
+    sched, tmap = make_diffusion("linear", 100, "ddim10")
+    gen = Generator(model, sched, tmap)
+    wav = torch.randn(2, 16000, generator=torch.Generator().manual_seed(1)) * 0.3
+    ip = torch.randn(2, T, D_POSE, generator=torch.Generator().manual_seed(2))
+    im = torch.zeros(2, T, 1)
+    im[:, :3] = 1.0
+    outs = []
+    for seed in (3, 3, 4):
+        before = fs.launches
+        outs.append(gen.generate_sample(
+            wav, D_POSE, T, sample_alg="ddpm", inpaint_poses=ip, inpaint_masks=im,
+            trans_factor=0.575, pose_seed_len=3,
+            generator=torch.Generator(device="cuda").manual_seed(seed)))
+        assert gen.last_sample_path == "fused" and fs.launches == before + 1
+    assert outs[0].shape == (2, T, D_POSE) and outs[0].is_cuda
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1]) and not torch.allclose(outs[0], outs[2])
+    with pytest.raises(ValueError, match="inpaint tensors"):
+        gen.generate_sample(wav, D_POSE, T)
+
+
+@pytest.mark.cuda
+def test_stream_on_card_equals_offline(card):
+    sched, tmap = make_diffusion("linear", 100, "ddim10")
+    gen = Generator(card, sched, tmap)
+    wav = (torch.randn(2, 48000, generator=torch.Generator().manual_seed(6)) * 0.3).numpy()
+    noises = [torch.randn(2, T, D_POSE, generator=torch.Generator().manual_seed(10 + d))
+              for d in range(8)]
+    kw = dict(noise_fn=lambda b0, d: noises[d], trans_factor=0.575)
+    ref = gen.generate_sequence(wav, 16000, D_POSE, 8, T, 2, **kw)
+    stream = gen.stream(16000, D_POSE, 8, T, 2, max_in_flight=2, **kw)
+    chunks = []
+    for i in range(0, wav.shape[1], 7000):
+        chunks.extend(stream.push(wav[:, i:i + 7000]))
+    chunks.extend(stream.flush())
+    assert np.array_equal(np.concatenate(chunks, axis=1), ref)
 
 
 @pytest.mark.cuda
@@ -88,7 +182,7 @@ def test_generator_runs_fused_on_card(card):
 def test_kernel_refuses_what_it_cannot_take(card):
     p = fs.pack_oneway_denoiser(card, D_POSE, T)
     sched, tmap = make_diffusion("linear", 100, "ddim10")
-    x, mem, _, _ = _inputs(1, T, 92, False, seed=3)   # 92 memory rows
+    x, mem, _, _ = _inputs(1, T, 129, False, seed=3)   # 129 memory rows
     with pytest.raises(ValueError, match="at most"):
         fs.fused_ddim_sample(p, x, mem, tmap.cuda(),
                              fs.ddim_coefficients(sched).cuda(), None, None,

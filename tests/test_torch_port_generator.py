@@ -1,6 +1,7 @@
 """The slice as a whole: the port's Generator (fused path, plain version
 on the CPU) against the JAX Generator (fused Pallas kernel in interpret
-mode, float32), on the same weights and the same noise."""
+mode, float32), on the same weights and the same noise, for all three
+model types, DDIM and DDPM, and eval_bpd."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,8 @@ from gesture_diffusion_tpu.generation import Generator as JaxGenerator
 from gesture_diffusion_tpu.models import GestureDenoiser as JaxDenoiser
 from gesture_diffusion_torch.diffusion import make_diffusion
 from gesture_diffusion_torch.generation import Generator, window_plan
-from torch_port_common import D_POSE, T, jax_variables, port_model, rel_err
+from torch_port_common import (D_POSE, T, inpaint_tensors, jax_variables,
+                               port_model, rel_err)
 
 torch.set_num_threads(1)
 
@@ -124,8 +126,11 @@ def test_update_variables_drops_pack(gens):
 
 def test_generator_contract(gens):
     _, tgen, wav = gens
-    with pytest.raises(NotImplementedError, match="DDPM"):
-        tgen.generate_sample(wav, D_POSE, T, sample_alg="ddpm")
+    with pytest.raises(ValueError, match="unknown sample_alg"):
+        tgen.generate_sample(wav, D_POSE, T, sample_alg="plms")
+    with pytest.raises(ValueError, match="scan sampler only"):
+        tgen.generate_sample(wav, D_POSE, T, sample_alg="ddpm",
+                             z_fn=lambda i: np.zeros((2, T, D_POSE), np.float32))
     with pytest.raises(TypeError, match="float"):
         tgen.generate_sample((wav * 32767).astype(np.int16), D_POSE, T)
     with pytest.raises(TypeError, match="float"):
@@ -138,3 +143,148 @@ def test_generator_contract(gens):
     mean_ms, std_ms, steps_per_s = tgen.eval_infer_time(
         wav, D_POSE, T, repetitions=1, warmup=1)
     assert mean_ms > 0 and steps_per_s > 0
+
+
+# -- the other model types, DDPM and bpd ---------------------------------------
+
+@pytest.fixture(scope="module", params=["default", "inpaint"])
+def typed_gens(request):
+    """(JAX fused, port fused, port scan, JAX scan, wav, model type)."""
+    wav = np.random.default_rng(60).normal(0, 0.3, (2, 16000)).astype(np.float32)
+    cfg, variables = jax_variables(request.param, n_layers=1, wav=wav, seed=61)
+    sj, tj = jax_make("linear", 100, "ddim10")
+    sp, tp = make_diffusion("linear", 100, "ddim10")
+    jm, tm = JaxDenoiser(cfg), port_model(cfg, variables)
+    jgen = JaxGenerator(jm, variables, sj, tj, use_fused=True,
+                        fused_dtype=jnp.float32)
+    jscan = JaxGenerator(jm, variables, sj, tj, use_fused=False)
+    tgen = Generator(tm, sp, tp, use_fused=True, fused_dtype=torch.float32,
+                     device="cpu")
+    tscan = Generator(tm, sp, tp, use_fused=False, device="cpu")
+    return jgen, tgen, tscan, jscan, wav, request.param
+
+
+def _seed_kw(seed):
+    ip, im = inpaint_tensors(seed, seed_len=SEED_LEN)
+    return dict(inpaint_poses=ip, inpaint_masks=im, trans_factor=0.575,
+                pose_seed_len=SEED_LEN)
+
+
+def _jnp_kw(kw):
+    return {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+            for k, v in kw.items()}
+
+
+def test_generate_sample_matches_for_type(typed_gens):
+    """default and inpaint: a time-concatenated memory whose length is off
+    the TPU's 8-row alignment (the JAX side pads and masks), and for
+    inpaint the conditioning MLP hoisted into x_add."""
+    jgen, tgen, tscan, _, wav, _ = typed_gens
+    noise = np.random.default_rng(62).normal(size=(2, T, D_POSE)).astype(np.float32)
+    kw = _seed_kw(63)
+    ref = jgen.generate_sample(jnp.asarray(wav), D_POSE, T, jax.random.key(0),
+                               noise=jnp.asarray(noise), **_jnp_kw(kw))
+    assert jgen.last_sample_path == "fused"
+    ours = tgen.generate_sample(wav, D_POSE, T, noise=noise, **kw)
+    assert tgen.last_sample_path == "fused"
+    assert rel_err(ours.numpy(), np.asarray(ref)) < TOL
+    # the port's scan path (inpaint tensors on every step) agrees too
+    scan = tscan.generate_sample(wav, D_POSE, T, noise=noise, **kw)
+    assert tscan.last_sample_path == "scan"
+    assert rel_err(scan.numpy(), np.asarray(ref)) < TOL
+
+
+def test_scan_ddpm_matches_jax_with_injected_noise(typed_gens):
+    _, _, tscan, jscan, wav, _ = typed_gens
+    noise = np.random.default_rng(64).normal(size=(2, T, D_POSE)).astype(np.float32)
+    kw = _seed_kw(65)
+    key = jax.random.key(66)
+    ref = jscan.generate_sample(jnp.asarray(wav), D_POSE, T, key,
+                                noise=jnp.asarray(noise), sample_alg="ddpm",
+                                **_jnp_kw(kw))
+    assert jscan.last_sample_path == "scan"
+    zs, k = {}, key             # the key reaches ddpm_sample_loop unsplit
+    for i in range(9, -1, -1):
+        k, sub = jax.random.split(k)
+        zs[i] = np.array(jax.random.normal(sub, noise.shape))
+    ours = tscan.generate_sample(wav, D_POSE, T, noise=noise, sample_alg="ddpm",
+                                 z_fn=zs.__getitem__, **kw)
+    assert tscan.last_sample_path == "scan"
+    # float32 both sides through 10 ancestral steps: 2e-5 relative
+    assert rel_err(ours.numpy(), np.asarray(ref)) < TOL
+
+
+def test_fused_ddpm_is_seeded_and_in_family(typed_gens):
+    """DDPM through the fused path: a function of the generator's seed,
+    different across seeds, finite, and in family with the scan DDPM
+    sampler (other noise streams, so moments and not values; the bars of
+    the JAX package's own fused DDPM test)."""
+    _, tgen, tscan, _, wav, _ = typed_gens
+    noise = np.random.default_rng(67).normal(size=(2, T, D_POSE)).astype(np.float32)
+    kw = dict(noise=noise, sample_alg="ddpm", **_seed_kw(68))
+
+    def run(gen, seed):
+        return gen.generate_sample(wav, D_POSE, T,
+                                   generator=torch.Generator().manual_seed(seed),
+                                   **kw).numpy()
+
+    a, b, c = run(tgen, 1), run(tgen, 1), run(tgen, 2)
+    assert tgen.last_sample_path == "fused"
+    np.testing.assert_array_equal(a, b)
+    assert not np.allclose(a, c) and np.isfinite(a).all()
+    d = run(tscan, 3)
+    assert abs(a.mean() - d.mean()) < 0.25 * max(1.0, abs(d.mean()))
+    assert 0.5 < a.std() / d.std() < 2.0
+
+
+def test_inpaint_model_needs_inpaint_tensors(typed_gens):
+    _, tgen, tscan, _, wav, model_type = typed_gens
+    if model_type != "inpaint":
+        out = tgen.generate_sample(wav, D_POSE, T,
+                                   generator=torch.Generator().manual_seed(0))
+        assert out.shape == (2, T, D_POSE)
+        return
+    for gen in (tgen, tscan):
+        with pytest.raises(ValueError, match="inpaint tensors"):
+            gen.generate_sample(wav, D_POSE, T,
+                                generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="pose_seed_len"):
+        tgen.eval_bpd(np.zeros((2, T, D_POSE), np.float32), wav)
+
+
+def _jax_bpd_noise(key, shape):
+    return np.stack([np.array(jax.random.normal(jax.random.fold_in(key, t), shape))
+                     for t in range(10)])
+
+
+@pytest.mark.parametrize("t_block", [1, 5, 4])
+def test_eval_bpd_matches(typed_gens, t_block):
+    """eval_bpd against JAX's with its per-timestep noise injected; a
+    t_block that does not divide the 10 steps (4) is clamped to 2 on both
+    sides."""
+    jgen, tgen, _, _, wav, _ = typed_gens
+    poses = np.random.default_rng(69).normal(size=(2, T, D_POSE)).astype(np.float32)
+    key = jax.random.key(70)
+    ref = jgen.eval_bpd(jnp.asarray(poses), jnp.asarray(wav), key,
+                        pose_seed_len=SEED_LEN, t_block=t_block)
+    ours = tgen.eval_bpd(poses, wav, pose_seed_len=SEED_LEN, t_block=t_block,
+                         noise=_jax_bpd_noise(key, poses.shape))
+    assert set(ours) == set(ref)
+    for k in ref:
+        assert tuple(ours[k].shape) == tuple(ref[k].shape), k
+        # float32 both sides; the model runs on other batch shapes per
+        # block: 5e-5 relative
+        assert rel_err(ours[k].numpy(), ref[k]) < 5e-5, k
+
+
+def test_eval_bpd_is_block_invariant(gens):
+    _, tgen, wav = gens
+    poses = np.random.default_rng(71).normal(size=(2, T, D_POSE)).astype(np.float32)
+    runs = [tgen.eval_bpd(poses, wav, generator=torch.Generator().manual_seed(5),
+                          t_block=k) for k in (1, 5, 10)]
+    for r in runs[1:]:
+        np.testing.assert_allclose(r["vb"].numpy(), runs[0]["vb"].numpy(),
+                                   rtol=2e-5)
+    other = tgen.eval_bpd(poses, wav, generator=torch.Generator().manual_seed(6))
+    assert not np.allclose(other["vb"].numpy(), runs[0]["vb"].numpy())
+    assert runs[0]["vb"].shape == (2, 10) and runs[0]["total_bpd"].shape == (2,)

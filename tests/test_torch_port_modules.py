@@ -14,8 +14,8 @@ from gesture_diffusion_tpu.models.speech_encoder import HA2GSpeechEncoder as Jax
 from gesture_diffusion_tpu.ops.audio import mel_filterbank as jax_fbank
 from gesture_diffusion_tpu.ops.audio import speech_frontend as jax_frontend
 from gesture_diffusion_torch.ops.audio import mel_filterbank, speech_frontend
-from torch_port_common import (D_POSE, DM, T, jax_variables, port_model,
-                               rel_err, seeded_wav)
+from torch_port_common import (D_POSE, DM, T, inpaint_tensors, jax_variables,
+                               port_model, rel_err, seeded_wav)
 
 torch.set_num_threads(1)
 
@@ -117,7 +117,58 @@ def test_denoiser_methods_match(model_type):
     assert rel_err(full.numpy(), ref_full) < FWD_TOL
 
 
-@pytest.mark.parametrize("model_type", ["s2g_v2", "default"])
+def test_inpaint_denoiser_matches():
+    """The inpaint model type: its conditioning MLP (kernels redrawn off
+    their zero init by the harness), denoise and forward."""
+    wav = seeded_wav(9)
+    cfg, variables = jax_variables("inpaint", n_layers=1, wav=wav, seed=10)
+    model = port_model(cfg, variables)
+    jm = JaxDenoiser(cfg)
+    x = np.random.default_rng(11).normal(size=(2, T, D_POSE)).astype(np.float32)
+    t = np.array([3, 977], np.int64)
+    ip, im = inpaint_tensors(12)
+    jx, jt, jw = jnp.asarray(x), jnp.asarray(t.astype(np.int32)), jnp.asarray(wav)
+    tx, tt, tip, tim = (torch.from_numpy(v) for v in (x, t, ip, im))
+    with torch.no_grad():
+        proj = model.inpaint_projection(tip, tim)
+        mem = model.encode_memory(torch.from_numpy(wav))
+        eps = model.denoise(tx, tt, mem, tip, tim)
+        full = model(tx, tt, torch.from_numpy(wav), tip, tim)
+        bare = model.pose_decoder(tx, torch.cat(
+            [model.diffusion_step_encoder(tt)[:, None], mem], dim=1))
+    ref_proj = jm.apply(variables, jnp.asarray(ip), jnp.asarray(im),
+                        method=JaxDenoiser.inpaint_projection)
+    ref_mem = jm.apply(variables, jw, method=JaxDenoiser.encode_memory)
+    ref_eps = jm.apply(variables, jx, jt, ref_mem, method=JaxDenoiser.denoise,
+                       inpaint_pose=jnp.asarray(ip), inpaint_mask=jnp.asarray(im))
+    ref_full = jm.apply(variables, jx, jt, jw, train=False,
+                        inpaint_pose=jnp.asarray(ip), inpaint_mask=jnp.asarray(im))
+    assert proj.shape == ref_proj.shape == (2, T, D_POSE)
+    assert np.abs(np.asarray(ref_proj)).max() > 0.05      # off the zero init
+    assert rel_err(proj.numpy(), ref_proj) < FWD_TOL
+    assert rel_err(eps.numpy(), ref_eps) < FWD_TOL
+    assert rel_err(full.numpy(), ref_full) < FWD_TOL
+    assert rel_err(bare.numpy(), ref_eps) > 1e-3          # the MLP is felt
+    with pytest.raises(ValueError, match="inpaint tensors"):
+        model.denoise(tx, tt, mem)
+
+
+def test_inpaint_projection_starts_at_zero():
+    """A freshly built inpaint model adds nothing (GLIDE-style zero init),
+    and init_random_ moves the MLP off zero."""
+    from gesture_diffusion_torch.models import (DenoiserConfig, GestureDenoiser,
+                                                init_random_)
+
+    model = GestureDenoiser(DenoiserConfig(d_pose=D_POSE, n_layers=1,
+                                           model_type="inpaint")).eval()
+    ip, im = (torch.from_numpy(v) for v in inpaint_tensors(13))
+    with torch.no_grad():
+        assert float(model.inpaint_projection(ip, im).abs().max()) == 0.0
+        init_random_(model, torch.Generator().manual_seed(0))
+        assert float(model.inpaint_projection(ip, im).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("model_type", ["s2g_v2", "default", "inpaint"])
 def test_converter_round_trip(model_type):
     """import_torch_state_dict (the JAX package's own importer, an
     independent oracle) inverts state_dict_from_jax leaf by leaf."""

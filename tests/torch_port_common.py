@@ -4,7 +4,9 @@ Both sides run in float32 on the CPU (tests/conftest.py pins JAX matmuls
 to "highest").  Inputs come from numpy with a seed; weights are built by
 the JAX package, moved off their init values (biases, LayerNorm/BN affine,
 BN running statistics), and carried into the port with
-``state_dict_from_jax``.
+``state_dict_from_jax``.  The inpaint model type's conditioning MLP starts
+at zero in both packages; here its kernels are redrawn from the seed, so
+that what it adds is visible to every comparison.
 """
 
 import jax
@@ -49,11 +51,32 @@ def jax_variables(model_type: str = "s2g_v2", n_layers: int = 1,
                     model_type=model_type)
     wav = seeded_wav(seed) if wav is None else wav
     n = wav.shape[0]
+    extra = {}
+    if model_type == "inpaint":
+        extra = dict(inpaint_pose=jnp.zeros((n, T, D_POSE)),
+                     inpaint_mask=jnp.zeros((n, T, 1)))
     variables = JaxDenoiser(cfg).init(
         jax.random.key(seed), jnp.zeros((n, T, D_POSE)),
-        jnp.zeros((n,), jnp.int32), jnp.asarray(wav), train=False)
+        jnp.zeros((n,), jnp.int32), jnp.asarray(wav), train=False, **extra)
     variables = jax.tree.map(np.asarray, variables)
-    return cfg, _perturb(variables, np.random.default_rng(seed + 100))
+    rng = np.random.default_rng(seed + 100)
+    if model_type == "inpaint":
+        proj = variables["params"]["inpaint_proj"]
+        for layer in proj.values():
+            fan_in = layer["kernel"].shape[0]
+            layer["kernel"] = rng.normal(
+                0, fan_in ** -0.5, layer["kernel"].shape).astype(np.float32)
+        assert all(np.abs(l["kernel"]).max() > 0 for l in proj.values())
+    return cfg, _perturb(variables, rng)
+
+
+def inpaint_tensors(seed: int, n: int = 2, t: int = T, seed_len: int = 2):
+    """(poses (N, T, D_POSE), mask (N, T, 1)) with the first ``seed_len``
+    frames marked as seed frames."""
+    poses = np.random.default_rng(seed).normal(size=(n, t, D_POSE)).astype(np.float32)
+    mask = np.zeros((n, t, 1), np.float32)
+    mask[:, :seed_len] = 1.0
+    return poses, mask
 
 
 def port_model(cfg, variables) -> GestureDenoiser:

@@ -5,16 +5,20 @@ Builds a kernel source once per variant of its timing hooks: all on
 ("all"), attention skipped, matmul k-loops skipped, both skipped, and the
 k-loops with the activation (A) or weight (B) fragments held at k-step 0,
 which takes that operand's loads out of the loop.  Each build then runs
-the flagship shapes through the package's wrapper: beat-ours, T 40, n_mem 32, seeded random weights, the
-first ``--steps`` steps of the 1000-step schedule.  It prints device
-microseconds per step (CUDA events) for batches 1 and 64.  A skipped build
-computes garbage; only its time is read.
+the flagship shapes through the package's wrapper: beat-ours, T 40,
+``--n-mem`` memory rows (32, the flagship's, by default; 92 is the default
+and inpaint model types'), seeded random weights, the first ``--steps``
+steps of the 1000-step schedule.  It prints device microseconds per step
+(CUDA events) for batches 1 and 64.  A skipped build computes garbage; only
+its time is read.
 
-    python3 tools/fused_ddim_breakdown.py [--steps 200] [--source a.cu ...]
+    python3 tools/fused_ddim_breakdown.py [--steps 200] [--n-mem 32 92]
+        [--variant fast=-use_fast_math ...] [--source a.cu ...]
 
 Sources default to the package's ``csrc/fused_ddim.cu``.  Several sources
 (e.g. the parent commit's, from ``git show``) are timed in turns in one
-process, on one card.
+process, on one card; each must have the C interface of the package's
+wrapper (``fused_ddim_launch`` with its pointer and dimension counts).
 """
 
 from __future__ import annotations
@@ -43,22 +47,32 @@ VARIANTS = (("all", ()), ("no_attn", ("-DFUSED_DDIM_SKIP_ATTN",)),
             ("fixed_b", ("-DFUSED_DDIM_FIXED_B",)))
 
 
-def build(src: str, tag: str, flags) -> ctypes.CDLL:
-    out = os.path.join(REPO, "build", "torch_kernels", f"breakdown-{tag}.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([kernel_build._nvcc(), *kernel_build.NVCC_FLAGS[:-2], *flags,
-                    "-o", out, src], check=True)
-    lib = ctypes.CDLL(out)
-    lib.fused_ddim_launch.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    lib.fused_ddim_launch.restype = ctypes.c_int
-    return lib
+def build_all_variants(sources, variants=VARIANTS) -> list:
+    """[(tag, library)] for every source and variant; one nvcc each, all
+    started together."""
+    out_dir = os.path.join(REPO, "build", "torch_kernels")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = []
+    for i, src in enumerate(sources):
+        for name, flags in variants:
+            out = os.path.join(out_dir, f"breakdown-{i}-{name}.so")
+            jobs.append((f"{i}:{name}", out, subprocess.Popen(
+                [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS[:-2], *flags,
+                 "-o", out, src])))
+    failed = [tag for tag, _, proc in jobs if proc.wait() != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}")
+    return [(tag, fs.bind_library(ctypes.CDLL(out))) for tag, out, _ in jobs]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--n-mem", type=int, nargs="*", default=[32],
+                    help="memory rows (token row included), one run each")
+    ap.add_argument("--variant", nargs="*", default=[], metavar="NAME=FLAGS",
+                    help="further builds, e.g. fast=-use_fast_math "
+                         "(comma-separated nvcc flags)")
     ap.add_argument("--source", nargs="*", default=[
         os.path.join(REPO, "gesture_diffusion_torch", "csrc", "fused_ddim.cu")])
     args = ap.parse_args()
@@ -76,13 +90,14 @@ def main() -> int:
     s = args.steps
     tm = tmap[-s:].cuda()
     cf = fs.ddim_coefficients(sched)[-s:].cuda()
-    libs = [(f"{i}:{name}", build(src, f"{i}-{name}", flags))
-            for i, src in enumerate(args.source) for name, flags in VARIANTS]
+    extra = tuple((v.split("=", 1)[0], tuple(v.split("=", 1)[1].split(",")))
+                  for v in args.variant)
+    libs = build_all_variants(args.source, VARIANTS + extra)
     g = torch.Generator(device="cuda").manual_seed(1)
-    for n in (1, 64):
+    for n, n_mem in ((n, m) for m in args.n_mem for n in (1, 64)):
         x = torch.zeros(n, 40, 128, device="cuda")
         x[..., :123] = torch.randn(n, 40, 123, generator=g, device="cuda")
-        mem = torch.randn(n, 32, 256, generator=g, device="cuda")
+        mem = torch.randn(n, n_mem, 256, generator=g, device="cuda")
         for tag, lib in libs:
             fs._LIB = lib
 
@@ -98,7 +113,7 @@ def main() -> int:
             run()
             e1.record()
             torch.cuda.synchronize()
-            print(f"source {tag:10s} batch {n:2d}: "
+            print(f"source {tag:10s} n_mem {n_mem:3d} batch {n:2d}: "
                   f"{e0.elapsed_time(e1) / s * 1e3:8.1f} us/step [{smi}]",
                   flush=True)
     fs._LIB = None

@@ -13,21 +13,38 @@
 // clip packing and 8-row padding are not needed here.  Rows outside
 // [0, T) and [0, n_mem) give zero to the dconv and nothing to a softmax.
 //
-// Design: one thread block of 8 warps per clip, a loop over the S steps
-// inside the block.  What a clip produces within a step lives in shared
-// memory: the residual stream h (f32), the bf16 operand rows of every
-// product, q/k/v of self-attention, the cross queries, and the FF hidden in
-// chunks.  Products run on the tensor cores through nvcuda::wmma (bf16
-// operands, f32 accumulation); the A operand (activations) comes from
-// shared memory and the B operand (weights) straight from global memory,
-// one k-step ahead.  The wrapper hands the weights over transposed, (N, K)
-// row-major, so a B fragment is loaded as 32-bit pairs along k.  Each warp
-// owns whole 32-column strips of an output, so it sees every row of its
-// strip and runs the strip's epilogue itself: bias, the 3-tap depthwise
+// Design: one clip per thread-block cluster of C blocks (C = 1, 2, 4 or 8,
+// chosen by the host: the largest that divides the heads and lets all
+// clusters of the batch run in one wave), 8 warps per block, a loop over
+// the S steps inside the cluster.  What a clip produces within a step lives
+// in shared memory, and every block of the cluster holds the same layout: a
+// full replica of the residual stream h (f32) and of the bf16 operand rows
+// of every product, q/k/v of self-attention, the cross queries, and the FF
+// hidden in chunks.  Products run on the tensor cores through nvcuda::wmma
+// (bf16 operands, f32 accumulation); the A operand (activations) comes from
+// the block's own shared memory and the B operand (weights) straight from
+// global memory, one k-step ahead.  The wrapper hands the weights over
+// transposed, (N, K) row-major, so a B fragment is loaded as 32-bit pairs
+// along k.
+//
+// Work division (matmul): a product is cut into units of one 32-column
+// strip, all row tiles and one of kp parts of K, spread over the cluster's
+// 8C warps; kp is chosen per product so that the longest chain of k-steps
+// any warp runs is short (kplan: at C = 8 and the flagship, 34 k-steps per
+// layer instead of 256).  The kp parts of a strip run in neighbouring warps
+// of one block and stage their partial sums side by side; after a block
+// barrier each of them runs the strip's epilogue on its share of the rows,
+// reading the sum of the parts in a fixed order: bias, the 3-tap depthwise
 // conv over time, squared ReLU, the residual add, or the sampler's update.
-// Attention runs on the tensor cores too, one warp per head and 16 queries
-// per pass: S = Q K^T into the warp's staging area, an f32 softmax over each
-// row there, P rounded to bf16 in place, then O = P V.
+// Each output element is computed by exactly one warp, which writes it into
+// every block's replica through distributed shared memory (or, for q/k/v
+// and the cross queries, into the block that owns the element's head).  A
+// cluster barrier separates a phase from the next one that reads what
+// another block wrote; LayerNorm runs in every block on its own replica of
+// h, which is bitwise the same in all.  Attention runs on the tensor cores
+// too, block r taking heads [r H/C, (r+1) H/C) and one warp per (head,
+// 16-query pass): S = Q K^T into the warp's staging area, an f32 softmax
+// over each row there, P rounded to bf16 in place, then O = P V.
 //
 // Memory design (the memory K and V are hoisted out of the step loop): only
 // memory rows 0 and 1 change from step to step: row 0 is the timestep
@@ -40,20 +57,22 @@
 // memory rows therefore take no shared memory, whatever n_mem is, and a
 // 16-query pass holds the scores of all (up to 128) keys at once (no running
 // softmax).  The hoisted values are the ones the in-loop product gave: same
-// operands, same f32 dconv, same rounding to bf16.  One block owns one clip,
-// so __syncthreads() orders the scratch writes before the reads; the
-// wrapper hands the scratch over zeroed, so its pad rows are finite.
-// The state x lives in the output buffer (global, f32), read and written
-// once per step.  Where a window is too long for full-strip staging
-// (T > 48 at d_model 256), a warp stages its strip in two 16-column halves.
+// operands, same f32 dconv, same rounding to bf16.  Blocks of a cluster
+// write the scratch and the state x for each other, so a cluster barrier
+// orders those global writes before the reads; the wrapper hands the
+// scratch over zeroed, so its pad rows are finite.  The state x lives in
+// the output buffer (global, f32), read and written once per step.  Where a
+// window is too long for full-strip staging (T > 48 at d_model 256), a warp
+// stages its strip in two 16-column halves.
 //
 // Bound on an H100: the ~8.7 MB of bf16 weights (flagship) fit in no SM, so
-// every block re-reads all of them from L2 on every step; the kernel is
-// bound by the matmul k-loops on few rows (weight stream and MMA latency,
-// about half of a step), then by the softmax and staging of the attention
-// passes: 8 warps on one SM per clip hide little latency.  Spreading one
-// clip's weights over many SMs, or several clips over one block, is later
-// work.
+// every step re-reads all of them from L2; the kernel is bound by latency:
+// the chains of dependent k-steps of the matmuls on few rows, then the
+// softmax and staging of the attention passes.  The cluster spreads one
+// clip's weight stream and its chains over C SMs; K-splitting keeps each
+// weight fragment loaded once per step and clip, as with one block.
+// Weights through an asynchronous ring in shared memory (TMA, wgmma) and
+// several clips per block are later work.
 //
 // Numerics (shared with fused_ddim_sample_plain): product operands are
 // rounded to bf16, everything else is f32: h, LayerNorm (normalise only,
@@ -64,14 +83,18 @@
 // Box-Muller of two words of Philox4x32-10 with key = the 64-bit seed (low
 // word, high word) and counter = ((r / 2) * Dp + n, s, clip, 0): words 0, 1
 // serve the even row of the pair, words 2, 3 the odd one.  u = top 23 bits
-// / 2^23, z = sqrt(-2 log(max(u1, 1e-12))) cos(2 pi u2).
+// / 2^23, z = sqrt(-2 log(max(u1, 1e-12))) cos(2 pi u2).  clip is the
+// cluster's index, so the noise does not depend on C.
 //
 // The seed is read from device memory, so a caller that drew it on the
 // card hands it over without a host round trip.
 //
-// C interface (ctypes): fused_ddim_launch(ptrs, 35, dims, 12, stream)
-// returns cudaGetLastError() after the launch.
+// C interface (ctypes): fused_ddim_launch(ptrs, 35, dims, 13, stream)
+// returns the launch's error (cudaLaunchKernelEx with the cluster
+// dimension; a refused launch is returned, never retried another way);
+// fused_ddim_cluster_size gives the host's choice of C.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,6 +102,7 @@
 #include <stdint.h>
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 #define NWARPS 8
@@ -91,8 +115,9 @@ typedef __nv_bfloat16 bf16;
 #define SMR 4                // softmax rows in flight per warp
 #define SMEM_LIMIT 232448
 #define LN_EPS 1e-6f
+#define MAXC 8               // blocks per cluster: the portable limit
 #define N_PTRS 35
-#define N_DIMS 12
+#define N_DIMS 13
 
 struct Params {
   const float* x_T;  float* out;
@@ -108,7 +133,7 @@ struct Params {
   const bf16* cross_bo;
   const bf16* ff_w1;  const bf16* ff_b1;  const bf16* ff_w2;  const bf16* ff_b2;
   const bf16* w_out;  const float* b_out;
-  int n, t, nm, d, dp, f, layers, heads, steps, fc, half, stochastic;
+  int n, t, nm, d, dp, f, layers, heads, steps, fc, half, stochastic, cluster;
 };
 
 // Shared-memory plan (bytes); mirrored by ops/fused_sampler.py::smem_bytes.
@@ -192,22 +217,90 @@ __device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
   return r * cosf(6.283185307179586f * u2);
 }
 
+// Cluster helpers.  csync: a barrier for what other blocks of the cluster
+// wrote (shared or global memory: barrier.cluster's arrive has release and
+// its wait acquire semantics); a block barrier when the cluster is one
+// block.  put_all: v into element i of every block's replica of `local`.
+__device__ __forceinline__ void csync(int C) {
+  if (C > 1) cg::this_cluster().sync(); else __syncthreads();
+}
+
+template <class T>
+__device__ __forceinline__ void put_all(T* local, int i, T v, int C) {
+  if (C == 1) {
+    local[i] = v;
+    return;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  for (int r = 0; r < C; ++r) cl.map_shared_rank(local, r)[i] = v;
+}
+
+// One strip of a product's result: the sum, in a fixed order, of the kp
+// partial accumulators its kp warps staged in their areas (ws floats
+// apart), each mt*16 rows of sw columns.
+struct Part {
+  const float* st; int ws, kp, sw;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    float v = st[r * sw + c];
+    for (int i = 1; i < kp; ++i) v += st[i * ws + r * sw + c];
+    return v;
+  }
+};
+
+// Rows [lo, hi) of `rows` that part q of kp runs the epilogue on: an even
+// count each, so that the update's noise pairs stay whole.
+__device__ __forceinline__ void part_rows(int rows, int q, int kp, int& lo,
+                                          int& hi) {
+  const int rc = ((rows + kp - 1) / kp + 1) & ~1;
+  lo = imin(q * rc, rows);
+  hi = imin(lo + rc, rows);
+}
+
+// K parts of a product of `strips` 32-column strips and ks k-steps on W
+// warps: the kp in 1, 2, 4, 8 (dividing ks) that makes the longest chain of
+// k-steps of a warp, rounds * ks / kp, shortest, with a small charge for
+// the reduction; ties go to the smaller kp.
+__device__ __forceinline__ int kplan(int strips, int ks, int W) {
+  int best = 1, cost = ((strips + W - 1) / W) * ks;
+  for (int kp = 2; kp <= NWARPS && ks % kp == 0; kp *= 2) {
+    const int c = ((strips * kp + W - 1) / W) * (ks / kp) + kp / 4;
+    if (c < cost) {
+      cost = c;
+      best = kp;
+    }
+  }
+  return best;
+}
+
+// The cluster as a product sees it: the block's staging areas (ws floats
+// per warp), the staging width sw, C blocks, this block's rank.
+struct Ctx {
+  float* stage0; int ws, sw, C, rank;
+};
+
 // C[rows, N] = A[rows, K] (bf16, shared, row stride lda) x W[K, N], with W
-// given transposed: Wt[N, K] (bf16, global, row stride ldk).  Warp w
-// computes column strips w, w+8, ... over all mt row tiles, stores each
-// strip to its staging area (f32, mt*16 rows of sw columns: the whole strip
-// when sw == STRIP, else one 16-column half after the other) and runs
-// epi(stage, sw, first column, lane) on it.  N % STRIP == 0, K % 16 == 0.
+// given transposed: Wt[N, K] (bf16, global, row stride ldk).  Unit
+// u = s * kp + q (strip s, K part q) goes to warp u mod 8C of the cluster,
+// which accumulates all mt row tiles of the strip over its part of K,
+// stores them to its staging area (f32, mt*16 rows of sw columns: the whole
+// strip when sw == STRIP, else one 16-column half after the other) and,
+// once the kp parts are staged, runs epi(part sum, first column, lane, q,
+// kp) for its share of the rows.  N % STRIP == 0, K % 16 == 0.
 template <class Epi>
-__device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
-                                       const bf16* __restrict__ Wt, int ldk,
-                                       int K, int N, float* stage, int sw,
-                                       const Epi& epi) {
+__device__ __forceinline__ void matmul(const Ctx& x, const bf16* A, int lda,
+                                       int mt, const bf16* __restrict__ Wt,
+                                       int ldk, int K, int N, const Epi& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int W = NWARPS * x.C, gw = x.rank * NWARPS + warp;
+  const int strips = N / STRIP, kp = kplan(strips, K / 16, W);
+  const int units = strips * kp, kd = K / kp;
+  int kl = kd;
 // Timing-breakdown hooks (tools/fused_ddim_breakdown.py), off in real
-// builds: SKIP_MMA drops the k-loops; FIXED_A / FIXED_B keep that operand's
-// fragments at k-step 0, taking its loads' cost out of the loop.
+// builds: SKIP_MMA drops the k-loops (the work division stays); FIXED_A /
+// FIXED_B keep that operand's fragments at k-step 0, taking its loads' cost
+// out of the loop.
 #ifdef FUSED_DDIM_SKIP_MMA
-  K = 0;
+  kl = 0;
 #endif
 #ifdef FUSED_DDIM_FIXED_A
 #define KA(k) ((k) * 0)
@@ -219,95 +312,106 @@ __device__ __forceinline__ void matmul(const bf16* A, int lda, int mt,
 #else
 #define KB(k) (k)
 #endif
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int n0 = warp * STRIP; n0 < N; n0 += NWARPS * STRIP) {
+  float* stage = x.stage0 + warp * x.ws;
+  for (int base = 0; base < units; base += W) {
+    const int u = base + gw;
+    const bool on = u < units;
+    const int s = u / kp, q = u % kp, n0 = s * STRIP;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXMT][NT];
 #pragma unroll
     for (int m = 0; m < MAXMT; ++m)
 #pragma unroll
       for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[m][j], 0.0f);
-    const bf16* wt = Wt + (size_t)n0 * ldk;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[NT], bn[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wmma::load_matrix_sync(b[j], wt + (size_t)16 * j * ldk, ldk);
-#pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const int kn = k0 + 16 < K ? k0 + 16 : k0;   // next k-step's weights
+    if (on) {
+      const bf16* wt = Wt + (size_t)n0 * ldk + q * kd;
+      const bf16* a0 = A + q * kd;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[NT], bn[NT];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
-        wmma::load_matrix_sync(bn[j], wt + (size_t)16 * j * ldk + KB(kn), ldk);
+        wmma::load_matrix_sync(b[j], wt + (size_t)16 * j * ldk, ldk);
+#pragma unroll 2
+      for (int k0 = 0; k0 < kl; k0 += 16) {
+        const int kn = k0 + 16 < kl ? k0 + 16 : k0;   // next k-step's weights
 #pragma unroll
-      for (int m = 0; m < MAXMT; ++m) {
-        if (m < mt) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + (size_t)16 * m * lda + KA(k0), lda);
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            wmma::mma_sync(acc[m][j], a, b[j], acc[m][j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) b[j] = bn[j];
-    }
-    if (sw == STRIP) {
-#pragma unroll
-      for (int m = 0; m < MAXMT; ++m) {
-        if (m < mt) {
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            wmma::store_matrix_sync(stage + 16 * m * STRIP + 16 * j, acc[m][j],
-                                    STRIP, wmma::mem_row_major);
-        }
-      }
-      __syncwarp();
-      epi(stage, STRIP, n0, lane);
-      __syncwarp();
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
+        for (int j = 0; j < NT; ++j)
+          wmma::load_matrix_sync(bn[j], wt + (size_t)16 * j * ldk + KB(kn), ldk);
 #pragma unroll
         for (int m = 0; m < MAXMT; ++m) {
-          if (m < mt)
-            wmma::store_matrix_sync(stage + 16 * m * 16, acc[m][j], 16,
-                                    wmma::mem_row_major);
+          if (m < mt) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+            wmma::load_matrix_sync(a, a0 + (size_t)16 * m * lda + KA(k0), lda);
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              wmma::mma_sync(acc[m][j], a, b[j], acc[m][j]);
+          }
         }
-        __syncwarp();
-        epi(stage, 16, n0 + 16 * j, lane);
-        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < NT; ++j) b[j] = bn[j];
       }
+    }
+    const Part part{stage - q * x.ws, x.ws, kp, x.sw};
+    const int halves = x.sw == STRIP ? 1 : NT;
+    for (int hf = 0; hf < halves; ++hf) {
+      if (on) {
+#pragma unroll
+        for (int m = 0; m < MAXMT; ++m) {
+          if (m < mt) {
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              if (halves == 1)
+                wmma::store_matrix_sync(stage + 16 * m * STRIP + 16 * j,
+                                        acc[m][j], STRIP, wmma::mem_row_major);
+              else if (j == hf)
+                wmma::store_matrix_sync(stage + 16 * m * 16, acc[m][j], 16,
+                                        wmma::mem_row_major);
+            }
+          }
+        }
+      }
+      if (kp > 1) __syncthreads(); else __syncwarp();
+      if (on) epi(part, n0 + 16 * hf, lane, q, kp);
+      if (kp > 1) __syncthreads(); else __syncwarp();
     }
   }
 }
 
 // Epilogues: lane c < sw owns column n0 + c of the staged columns and walks
-// its rows; st has row stride sw.
+// its share of the rows (part_rows); a(r, c) is the product's value.
 
-// h = acc + b_embx + pe_x
+// h = acc + b_embx + pe_x, into every replica
 struct EpiEmbX {
-  float* h; const bf16* b; const float* pe; int rows, d;
-  __device__ void operator()(const float* st, int sw, int n0, int c) const {
-    if (c >= sw) return;
+  float* h; const bf16* b; const float* pe; int rows, d, C;
+  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
+    if (c >= a.sw) return;
     const int n = n0 + c;
     const float bias = bf(b[n]);
-    for (int r = 0; r < rows; ++r)
-      h[r * d + n] = (st[r * sw + c] + bias) + pe[r * d + n];
+    int lo, hi;
+    part_rows(rows, q, kp, lo, hi);
+    for (int r = lo; r < hi; ++r)
+      put_all(h, r * d + n, (a(r, c) + bias) + pe[r * d + n], C);
   }
 };
 
-// y = dconv3(acc + b) over the rows, stored bf16 (attention operands)
+// y = dconv3(acc + b) over the rows, stored bf16 (attention operands) in
+// the block that owns column n's head: columns n mod hmod of [0, hmod)
+// go to blocks in C equal slices
 struct EpiDconv {
   bf16* out; int ldo; const bf16* b; const bf16* taps; const bf16* tb;
-  int ntap, rows;
-  __device__ void operator()(const float* st, int sw, int n0, int c) const {
-    if (c >= sw) return;
+  int ntap, rows, hmod, C;
+  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
+    if (c >= a.sw) return;
     const int n = n0 + c;
+    int lo, hi;
+    part_rows(rows, q, kp, lo, hi);
+    if (lo >= hi) return;
+    bf16* o = C == 1 ? out
+                     : cg::this_cluster().map_shared_rank(out, (n % hmod) / (hmod / C));
     const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
                 w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
-    float prev = 0.0f, cur = st[c] + bias;
-    for (int r = 0; r < rows; ++r) {
-      const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
-      out[r * ldo + n] = __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
+    float prev = lo > 0 ? a(lo - 1, c) + bias : 0.0f, cur = a(lo, c) + bias;
+    for (int r = lo; r < hi; ++r) {
+      const float nxt = (r + 1 < rows) ? a(r + 1, c) + bias : 0.0f;
+      o[r * ldo + n] = __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
       prev = cur;
       cur = nxt;
     }
@@ -323,42 +427,50 @@ struct EpiDconv {
 struct EpiMemKV {
   bf16* kv; int d; const bf16* b; const bf16* taps; const bf16* tb;
   int r0, rows, o_lo, o_hi;
-  __device__ void operator()(const float* st, int sw, int n0, int c) const {
-    if (c >= sw) return;
+  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
+    if (c >= a.sw) return;
     const int n = n0 + c, ntap = 2 * d;
     const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
                 w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
-    for (int r = o_lo; r < o_hi; ++r) {
-      const float prev = r > 0 ? st[(r - 1) * sw + c] + bias : 0.0f;
-      const float cur = st[r * sw + c] + bias;
-      const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
+    int lo, hi;
+    part_rows(rows, q, kp, lo, hi);
+    for (int r = imax(lo, o_lo); r < imin(hi, o_hi); ++r) {
+      const float prev = r > 0 ? a(r - 1, c) + bias : 0.0f;
+      const float cur = a(r, c) + bias;
+      const float nxt = (r + 1 < rows) ? a(r + 1, c) + bias : 0.0f;
       kv[(size_t)(r0 + r) * ntap + n] =
           __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
     }
   }
 };
 
-// h += acc + b   (b may be null)
+// h += acc + b (b may be null), into every replica
 struct EpiResid {
-  float* h; const bf16* b; int rows, d;
-  __device__ void operator()(const float* st, int sw, int n0, int c) const {
-    if (c >= sw) return;
+  float* h; const bf16* b; int rows, d, C;
+  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
+    if (c >= a.sw) return;
     const int n = n0 + c;
     const float bias = b ? bf(b[n]) : 0.0f;
-    for (int r = 0; r < rows; ++r) h[r * d + n] += st[r * sw + c] + bias;
+    int lo, hi;
+    part_rows(rows, q, kp, lo, hi);
+    for (int r = lo; r < hi; ++r)
+      put_all(h, r * d + n, h[r * d + n] + (a(r, c) + bias), C);
   }
 };
 
-// f = relu(acc + b)^2 as bf16 (the FF2 operand); n is the column in the chunk
+// f = relu(acc + b)^2 as bf16 (the FF2 operand), into every replica; n is
+// the column in the chunk
 struct EpiRelu2 {
-  bf16* f; int ldf; const bf16* b; int rows;
-  __device__ void operator()(const float* st, int sw, int n0, int c) const {
-    if (c >= sw) return;
+  bf16* f; int ldf; const bf16* b; int rows, C;
+  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
+    if (c >= a.sw) return;
     const int n = n0 + c;
     const float bias = bf(b[n]);
-    for (int r = 0; r < rows; ++r) {
-      const float v = fmaxf(st[r * sw + c] + bias, 0.0f);
-      f[r * ldf + n] = __float2bfloat16(v * v);
+    int lo, hi;
+    part_rows(rows, q, kp, lo, hi);
+    for (int r = lo; r < hi; ++r) {
+      const float v = fmaxf(a(r, c) + bias, 0.0f);
+      put_all(f, r * ldf + n, __float2bfloat16(v * v), C);
     }
   }
 };
@@ -394,11 +506,13 @@ struct EpiUpdate {
     }
   }
 
-  __device__ void operator()(const float* st, int sw, int n0, int c) const {
-    if (c >= sw) return;
+  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
+    if (c >= a.sw) return;
     const int n = n0 + c;
     const float bias = b[n];
-    for (int r = 0; r < rows; r += 2) {
+    int lo, hi;
+    part_rows(rows, q, kp, lo, hi);
+    for (int r = lo; r < hi; r += 2) {
       float z0 = 0.0f, z1 = 0.0f;
       if (stochastic) {
         uint32_t w[4];
@@ -406,8 +520,8 @@ struct EpiUpdate {
         z0 = box_muller(w[0], w[1]);
         z1 = box_muller(w[2], w[3]);
       }
-      one(r * dp + n, st[r * sw + c] + bias, z0);
-      if (r + 1 < rows) one((r + 1) * dp + n, st[(r + 1) * sw + c] + bias, z1);
+      one(r * dp + n, a(r, c) + bias, z0);
+      if (r + 1 < rows) one((r + 1) * dp + n, a(r + 1, c) + bias, z1);
     }
   }
 };
@@ -431,8 +545,10 @@ __device__ void layer_norm(const float* h, int rows, int d, bf16* z, int ldz) {
   }
 }
 
-// o[i, head] = softmax(q_i . K^T * scale) V on the tensor cores, one warp
-// per head, 16 queries per pass.  q, k and v are row-major bf16 (shared or
+// o[i, head] = softmax(q_i . K^T * scale) V on the tensor cores, for the
+// heads of this block of the cluster (heads / C of them, from rank *
+// heads / C on), one warp per (head, 16-query pass); o goes to every
+// block's replica.  q, k and v are row-major bf16 (shared or
 // global memory; k and v one row per key), dk a multiple of 16.  A pass
 // stores S = Q K^T (f32) to the warp's staging area sbuf as 16 rows of nkp
 // columns (nk rounded up to whole tiles), runs the softmax of each row in
@@ -447,7 +563,7 @@ __device__ void layer_norm(const float* h, int rows, int d, bf16* z, int ldz) {
 __device__ void attention(const bf16* q, int ldq, const bf16* k, int ldk,
                           const bf16* v, int ldv, int nq, int nk, int heads,
                           int dk, float scale, bf16* o, int ldo, float* sbuf,
-                          int stage_warp) {
+                          int stage_warp, int C, int rank) {
 #ifdef FUSED_DDIM_SKIP_ATTN
   return;  // timing-breakdown hook, off in real builds
 #endif
@@ -458,9 +574,10 @@ __device__ void attention(const bf16* q, int ldq, const bf16* k, int ldk,
   if (warp % span) return;
   bf16* pb = reinterpret_cast<bf16*>(sbuf);
   float* obuf = sbuf + 8 * nkp;           // behind the 16 x nkp bf16 of P
-  for (int hh = warp / span; hh < heads; hh += NWARPS / span) {
-    const int hd = hh * dk;
-    for (int i0 = 0; i0 < nq; i0 += 16) {
+  const int hl = heads / C, passes = (nq + 15) / 16;
+  for (int u = warp / span; u < hl * passes; u += NWARPS / span) {
+    const int hd = (rank * hl + u / passes) * dk, i0 = (u % passes) * 16;
+    {
       for (int j0 = 0; j0 < nkp; j0 += 16) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
         wmma::fill_fragment(sc, 0.0f);
@@ -537,7 +654,7 @@ __device__ void attention(const bf16* q, int ldq, const bf16* k, int ldk,
       __syncwarp();
       for (int r = 0; r < rows; ++r)
         for (int c = lane; c < dk; c += 32)
-          o[(i0 + r) * ldo + hd + c] = __float2bfloat16(obuf[r * dk + c]);
+          put_all(o, (i0 + r) * ldo + hd + c, __float2bfloat16(obuf[r * dk + c]), C);
       __syncwarp();     // sbuf is rewritten by the next pass
     }
   }
@@ -549,14 +666,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
   const int T = p.t, NM = p.nm, D = p.d, DP = p.dp, F = p.f, FC = p.fc;
   const int NMP = (NM + 15) & ~15;
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int clip = blockIdx.x;
-  const int sw = L.sw;
+  // a one-dimensional cluster of C blocks per clip: rank = position in it
+  const int C = p.cluster, rank = blockIdx.x % C, clip = blockIdx.x / C;
 
   float* h = reinterpret_cast<float*>(smem + L.h);
   bf16* za = reinterpret_cast<bf16*>(smem + L.za);
   bf16* big = reinterpret_cast<bf16*>(smem + L.big);
   bf16* ma = reinterpret_cast<bf16*>(smem + L.ma);
-  float* stage = reinterpret_cast<float*>(smem + L.stage) + warp * L.stage_warp;
+  float* stage0 = reinterpret_cast<float*>(smem + L.stage);
+  float* stage = stage0 + warp * L.stage_warp;
+  const Ctx cx{stage0, L.stage_warp, L.sw, C, rank};
 
   // the state x lives in the clip's slice of the output
   float* xs = p.out + (size_t)clip * T * DP;
@@ -573,14 +692,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
   const size_t dd = (size_t)D * D;
   const unsigned long long seed = p.stochastic ? *p.seed : 0ull;
 
-  // zero the operand areas so that pad rows of every row tile hold 0
+  // zero the operand areas so that pad rows of every row tile hold 0; the
+  // cluster barrier also keeps other blocks' writes out until this is done
   for (int i = tid; i < (L.total - L.za) / 4; i += NTHREADS)
     reinterpret_cast<uint32_t*>(smem + L.za)[i] = 0u;
-  for (int i = tid; i < T * DP; i += NTHREADS) xs[i] = xg[i];
-  __syncthreads();
+  for (int i = rank * NTHREADS + tid; i < T * DP; i += C * NTHREADS) xs[i] = xg[i];
+  csync(C);
 
   // memory K and V of every layer, once: chunks of 16*mtx memory rows that
-  // overlap by two, so that each row's dconv sees its real neighbours
+  // overlap by two, so that each row's dconv sees its real neighbours; each
+  // block stages every chunk, the cluster shares the products
   {
     const int ch = 16 * L.mtx;
     for (int s0 = 0;; s0 += ch - 2) {
@@ -593,8 +714,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       }
       __syncthreads();
       for (int l = 0; l < p.layers; ++l)
-        matmul(big, L.ldm, (rows + 15) / 16, p.cross_wkv + l * 2 * dd, D, D,
-               2 * D, stage, sw,
+        matmul(cx, big, L.ldm, (rows + 15) / 16, p.cross_wkv + l * 2 * dd, D, D,
+               2 * D,
                EpiMemKV{kvs + l * kv_layer, D, p.cross_bkv + l * 2 * D,
                         p.cross_dkv + l * 6 * D, p.cross_dkvb + l * 2 * D, s0,
                         rows, s0 == 0 ? 0 : 1, last ? rows : rows - 1});
@@ -602,6 +723,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       if (last) break;
     }
   }
+  csync(C);
 
   for (int it = 0; it < p.steps; ++it) {
     const int s = p.steps - 1 - it;
@@ -609,25 +731,25 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       za[(i / DP) * L.lda + i % DP] =
           __float2bfloat16(xa ? xs[i] + xa[i] : xs[i]);
     __syncthreads();
-    matmul(za, L.lda, L.mtx, p.w_embx, DP, DP, D, stage, sw,
-           EpiEmbX{h, p.b_embx, p.pe_x, T, D});
-    __syncthreads();
+    matmul(cx, za, L.lda, L.mtx, p.w_embx, DP, DP, D,
+           EpiEmbX{h, p.b_embx, p.pe_x, T, D, C});
+    csync(C);
 
     for (int l = 0; l < p.layers; ++l) {
       // self-attention: merged QKV + dconv -> attention -> out-proj
       layer_norm(h, T, D, za, L.lda);
       __syncthreads();
-      matmul(za, L.lda, L.mtx, p.self_wqkv + l * 3 * dd, D, D, 3 * D, stage, sw,
+      matmul(cx, za, L.lda, L.mtx, p.self_wqkv + l * 3 * dd, D, D, 3 * D,
              EpiDconv{big, L.ldqkv, p.self_bqkv + l * 3 * D,
                       p.self_dconv + l * 9 * D, p.self_dbias + l * 3 * D,
-                      3 * D, T});
-      __syncthreads();
+                      3 * D, T, D, C});
+      csync(C);
       attention(big, L.ldqkv, big + D, L.ldqkv, big + 2 * D, L.ldqkv, T, T,
-                p.heads, dk, scale, za, L.lda, stage, L.stage_warp);
-      __syncthreads();
-      matmul(za, L.lda, L.mtx, p.self_wo + l * dd, D, D, D, stage, sw,
-             EpiResid{h, p.self_bo + l * D, T, D});
-      __syncthreads();
+                p.heads, dk, scale, za, L.lda, stage, L.stage_warp, C, rank);
+      csync(C);
+      matmul(cx, za, L.lda, L.mtx, p.self_wo + l * dd, D, D, D,
+             EpiResid{h, p.self_bo + l * D, T, D, C});
+      csync(C);
 
       // cross-attention: q from h; memory rows 0 and 1 of K and V from the
       // tile [token; memory row 1; memory row 2], the rest is in the scratch
@@ -639,41 +761,41 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       }
       __syncthreads();
       bf16* kv = kvs + l * kv_layer;
-      matmul(za, L.lda, L.mtx, p.cross_wq + l * dd, D, D, D, stage, sw,
+      matmul(cx, za, L.lda, L.mtx, p.cross_wq + l * dd, D, D, D,
              EpiDconv{big, L.ldcq, p.cross_bq + l * D, p.cross_dq + l * 3 * D,
-                      p.cross_dqb + l * D, D, T});
-      matmul(ma, L.ldm, 1, p.cross_wkv + l * 2 * dd, D, D, 2 * D, stage, sw,
+                      p.cross_dqb + l * D, D, T, D, C});
+      matmul(cx, ma, L.ldm, 1, p.cross_wkv + l * 2 * dd, D, D, 2 * D,
              EpiMemKV{kv, D, p.cross_bkv + l * 2 * D, p.cross_dkv + l * 6 * D,
                       p.cross_dkvb + l * 2 * D, 0, mrows, 0, 2});
-      __syncthreads();
+      csync(C);
       attention(big, L.ldcq, kv, 2 * D, kv + D, 2 * D, T, NM, p.heads, dk, scale,
-                za, L.lda, stage, L.stage_warp);
-      __syncthreads();
-      matmul(za, L.lda, L.mtx, p.cross_wo + l * dd, D, D, D, stage, sw,
-             EpiResid{h, p.cross_bo + l * D, T, D});
-      __syncthreads();
+                za, L.lda, stage, L.stage_warp, C, rank);
+      csync(C);
+      matmul(cx, za, L.lda, L.mtx, p.cross_wo + l * dd, D, D, D,
+             EpiResid{h, p.cross_bo + l * D, T, D, C});
+      csync(C);
 
       // squared-ReLU FF in hidden chunks of FC
       layer_norm(h, T, D, za, L.lda);
       __syncthreads();
       for (int c0 = 0; c0 < F; c0 += FC) {
-        matmul(za, L.lda, L.mtx, p.ff_w1 + ((size_t)l * F + c0) * D, D, D, FC,
-               stage, sw, EpiRelu2{big, L.ldf, p.ff_b1 + (size_t)l * F + c0, T});
-        __syncthreads();
-        matmul(big, L.ldf, L.mtx, p.ff_w2 + (size_t)l * D * F + c0, F, FC, D,
-               stage, sw, EpiResid{h, c0 == 0 ? p.ff_b2 + l * D : nullptr, T, D});
-        __syncthreads();
+        matmul(cx, za, L.lda, L.mtx, p.ff_w1 + ((size_t)l * F + c0) * D, D, D,
+               FC, EpiRelu2{big, L.ldf, p.ff_b1 + (size_t)l * F + c0, T, C});
+        csync(C);
+        matmul(cx, big, L.ldf, L.mtx, p.ff_w2 + (size_t)l * D * F + c0, F, FC,
+               D, EpiResid{h, c0 == 0 ? p.ff_b2 + l * D : nullptr, T, D, C});
+        csync(C);
       }
     }
 
     layer_norm(h, T, D, za, L.lda);
     __syncthreads();
     const float* cf = p.coefs + (size_t)s * 5;
-    matmul(za, L.lda, L.mtx, p.w_out, D, D, DP, stage, sw,
+    matmul(cx, za, L.lda, L.mtx, p.w_out, D, D, DP,
            EpiUpdate{xs, p.b_out, ba, bb, cf[0], cf[1], cf[2], cf[3], cf[4], T, DP,
                      p.stochastic, (uint32_t)seed, (uint32_t)(seed >> 32),
                      (uint32_t)s, (uint32_t)clip});
-    __syncthreads();
+    csync(C);
   }
 }
 
@@ -684,6 +806,50 @@ extern "C" int fused_ddim_smem_bytes(int t, int d, int dp, int fc, int half) {
 // bf16 elements of one clip's K/V scratch
 extern "C" long long fused_ddim_scratch_elems(int nm, int d, int layers) {
   return (long long)layers * 2 * d * ((nm + 15) & ~15);
+}
+
+static cudaLaunchConfig_t launch_config(int blocks, int c, int smem,
+                                        cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of c blocks, each with smem bytes of shared memory, that the
+// card runs at once (cudaOccupancyMaxActiveClusters); minus a CUDA error.
+extern "C" int fused_ddim_max_clusters(int c, int smem) {
+  if (c < 1 || c > MAXC || smem > SMEM_LIMIT) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_ddim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(c, c, smem, 0, &attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (void*)fused_ddim_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// The cluster size for n clips: the largest of 8, 4, 2 that divides heads
+// and runs all n clusters at once, else 1 (ops/fused_sampler.py::
+// cluster_plan is the same rule); minus a CUDA error.
+extern "C" int fused_ddim_cluster_size(int n, int heads, int smem) {
+  for (int c = MAXC; c > 1; c /= 2) {
+    if (heads % c) continue;
+    const int m = fused_ddim_max_clusters(c, smem);
+    if (m < 0) return m;
+    if (m >= n) return c;
+  }
+  return 1;
 }
 
 extern "C" int fused_ddim_launch(void** ptrs, int n_ptrs, const int* dims,
@@ -724,20 +890,27 @@ extern "C" int fused_ddim_launch(void** ptrs, int n_ptrs, const int* dims,
   p.n = dims[0];  p.t = dims[1];  p.nm = dims[2];  p.d = dims[3];
   p.dp = dims[4]; p.f = dims[5];  p.layers = dims[6];  p.heads = dims[7];
   p.steps = dims[8];  p.fc = dims[9];  p.half = dims[10];
-  p.stochastic = dims[11];
+  p.stochastic = dims[11];  p.cluster = dims[12];
 
   const int dk = p.heads > 0 ? p.d / p.heads : 0;
+  const int c = p.cluster;
   if (p.n < 1 || p.t < 1 || p.t > 16 * MAXMT || p.nm < 2 ||
       p.nm > 32 * MAXKC || p.heads < 1 || p.d % p.heads || dk % 16 ||
       dk > MAXDK || p.d % STRIP || p.dp % STRIP || p.fc % STRIP ||
       p.fc < STRIP || p.f % p.fc || p.steps < 1 || p.layers < 1 ||
-      p.kv == nullptr || (p.stochastic && p.seed == nullptr))
+      p.kv == nullptr || (p.stochastic && p.seed == nullptr) ||
+      c < 1 || c > MAXC || (c & (c - 1)) || p.heads % c ||
+      (long long)p.n * c > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(p.t, p.d, p.dp, p.fc, p.half);
   if (L.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fused_ddim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return (int)e;
-  fused_ddim_kernel<<<p.n, NTHREADS, L.total, (cudaStream_t)stream>>>(p);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(p.n * c, c, L.total, (cudaStream_t)stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, fused_ddim_kernel, p);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -55,13 +55,16 @@ scratch, which stays in L2.  Both attentions run on the tensor cores, 16
 queries per pass, with the softmax in float32 between the two products.
 
 What bounds the kernel on an H100: no SM holds the ~8.7 MB of bf16 weights
-(227 KB of shared memory), so each thread block (one per clip) re-reads
-every weight from L2 on every step, and its matmul k-loops run on the few
-rows of one clip: batch 1 uses 1 of 132 SMs.  The design keeps what a step
-produces in shared memory so that the weight stream is the main traffic;
-later work (weights sharded over SMs, clips sharing a block, wgmma/TMA)
-attacks the stream itself.  ``bound_ms`` in ``chip_smoke.py`` gives the
-least time for the work.
+(227 KB of shared memory), so every step re-reads every weight from L2,
+and the matmul k-loops run on the few rows of one clip as chains of
+dependent k-steps.  One clip runs on a thread-block cluster of C blocks
+(``cluster_plan``: the largest of 8, 4, 2 that divides the heads and lets
+all n clusters run in one wave, else 1), each with a full replica of the
+clip's shared-memory layout; the cluster spreads every product's column
+strips and K over its 8C warps and each block's epilogues write into every
+replica.  Later work (weights through a TMA ring, wgmma, clips sharing a
+block) attacks the weight stream itself.  ``bound_ms`` in
+``chip_smoke.py`` gives the least time for the work.
 """
 
 from __future__ import annotations
@@ -79,19 +82,23 @@ from ..models.attention import sinusoidal_position_encoding
 from ..models.decoders import LN_EPS
 from ..models.denoiser import timestep_freqs
 
-# kernel limits (csrc/fused_ddim.cu): one block of NWARPS warps per clip,
-# epilogue strips of 32 columns, at most 4 row tiles of 16 window rows,
-# 4 key chunks of 32 memory rows, heads of up to 4 tiles of 16 dims
+# kernel limits (csrc/fused_ddim.cu): one cluster of blocks of NWARPS
+# warps per clip, epilogue strips of 32 columns, at most 4 row tiles of 16
+# window rows, 4 key chunks of 32 memory rows, heads of up to 4 tiles of
+# 16 dims
 NWARPS = 8
 STRIP = 32
 MAX_T = 64
 MAX_MEM = 128
 MAX_DK = 64
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block can use
+CLUSTER_SIZES = (8, 4, 2, 1)  # blocks per clip; 8 is the portable limit
 
 #: launches of the CUDA kernel (never of the plain version); callers that
 #: want a per-run count set it to 0 first
 launches = 0
+#: the cluster size of the last launch
+last_cluster = None
 
 
 class PackedDenoiser(NamedTuple):
@@ -506,6 +513,18 @@ def smem_plan(t: int, d_model: int, dp_pad: int, ffn: int):
     return smem_bytes(t, d_model, dp_pad, fc, half), fc, half
 
 
+def cluster_plan(n: int, heads: int, max_clusters) -> int:
+    """Blocks per clip for n clips: the largest C of 8, 4, 2 that divides
+    ``heads`` (a block owns whole heads) and for which all n clusters run at
+    once, ``max_clusters(C) >= n`` (the card's figure at the kernel's shared
+    memory, ``cudaOccupancyMaxActiveClusters``); else 1.  Mirrors
+    ``fused_ddim_cluster_size`` in ``csrc/fused_ddim.cu``."""
+    for c in CLUSTER_SIZES[:-1]:
+        if heads % c == 0 and max_clusters(c) >= n:
+            return c
+    return 1
+
+
 def scratch_elems(n_mem: int, d_model: int, n_layers: int) -> int:
     """bfloat16 elements of one clip's memory K/V scratch: per layer one
     row of [K | V] per memory row, n_mem rounded up to whole 16-row tiles."""
@@ -535,7 +554,7 @@ def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int):
 
 
 _LIB = None
-N_PTRS, N_DIMS = 35, 12
+N_PTRS, N_DIMS = 35, 13
 
 
 def _library():
@@ -557,7 +576,28 @@ def bind_library(lib):
     lib.fused_ddim_smem_bytes.restype = ctypes.c_int
     lib.fused_ddim_scratch_elems.argtypes = [ctypes.c_int] * 3
     lib.fused_ddim_scratch_elems.restype = ctypes.c_longlong
+    lib.fused_ddim_max_clusters.argtypes = [ctypes.c_int] * 2
+    lib.fused_ddim_max_clusters.restype = ctypes.c_int
+    lib.fused_ddim_cluster_size.argtypes = [ctypes.c_int] * 3
+    lib.fused_ddim_cluster_size.restype = ctypes.c_int
     return lib
+
+
+_MAX_CLUSTERS: dict = {}
+
+
+def max_clusters(lib, c: int, smem: int, device) -> int:
+    """Clusters of c blocks with ``smem`` bytes each that the card runs at
+    once, asked of the built library once per (library, device, c, smem);
+    raises on a CUDA error."""
+    key = (id(lib), str(device), c, smem)
+    if key not in _MAX_CLUSTERS:
+        m = lib.fused_ddim_max_clusters(c, smem)
+        if m < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for "
+                               f"clusters of {c}: CUDA error {-m}")
+        _MAX_CLUSTERS[key] = m
+    return _MAX_CLUSTERS[key]
 
 
 #: product weights the kernel reads transposed, (N, K) row-major, so that a
@@ -585,8 +625,10 @@ def kernel_weights(packed: PackedDenoiser) -> dict:
 
 def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
                      n_layers, heads, num_steps, compute_dtype,
-                     stochastic=False, seed=0, x_add=None):
-    global launches
+                     stochastic=False, seed=0, x_add=None, *, cluster=None):
+    """Launch the kernel.  ``cluster`` forces the blocks per clip (tests
+    and ``chip_smoke.py``); by default ``cluster_plan`` picks it."""
+    global launches, last_cluster
     if compute_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel computes with bfloat16 operands only "
                          f"(got compute_dtype={compute_dtype})")
@@ -603,6 +645,13 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
     fc, half = _kernel_plan(packed, x_T, mem_rows, heads)
     n, t, dp = x_T.shape
+    lib = _library()
+    if cluster is None:
+        nbytes = smem_bytes(t, packed.w_emm.shape[0], dp, fc, half)
+        cluster = cluster_plan(n, heads, lambda c: max_clusters(lib, c, nbytes, dev))
+    elif cluster not in CLUSTER_SIZES or heads % cluster:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES} and divide "
+                         f"heads ({heads}); got {cluster}")
     d_model = packed.w_emm.shape[0]
     mem = mem_rows.to(torch.bfloat16)
     tok = step_tokens(packed, tmap, compute_dtype).to(torch.bfloat16).contiguous()
@@ -629,17 +678,20 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
         *[None if a is None else a.data_ptr() for a in tensors])
     dims = (ctypes.c_int * N_DIMS)(n, t, mem.shape[1], d_model, dp,
                                    p.ff_w1.shape[2], n_layers, heads, num_steps,
-                                   fc, int(half), int(bool(stochastic)))
+                                   fc, int(half), int(bool(stochastic)),
+                                   cluster)
     # the launch is asynchronous: the temporaries above (mem, tok, coef5,
     # seed_t, the scratch) may be freed on return because the caching
     # allocator only reuses their blocks for work queued after the kernel
     # on this same stream
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().fused_ddim_launch(ptrs, N_PTRS, dims, N_DIMS,
-                                      ctypes.c_void_p(stream))
+    rc = lib.fused_ddim_launch(ptrs, N_PTRS, dims, N_DIMS,
+                               ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"fused_ddim kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_ddim kernel launch failed (clusters of "
+                           f"{cluster} blocks): CUDA error {rc}")
     launches += 1
+    last_cluster = cluster
     return out
 
 

@@ -107,6 +107,69 @@ def test_new_variants_match_plain(card, n, t, n_mem, blend, x_add, stochastic):
         assert _rel(other, ref) > BAR            # the seed is felt
 
 
+# the four variants of the TPU kernel at the flagship window (3 row tiles):
+# (memory rows, x0 blend, DDPM, x_add)
+VARIANTS = {"ddim": (32, True, False, False), "long": (92, False, False, False),
+            "stochastic": (32, False, True, False), "x_add": (92, True, True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("n", [1, 3])
+def test_cluster_kernel_matches_plain(card, cluster, variant, n):
+    """Every variant at every cluster size, forced, against the plain
+    version."""
+    n_mem, blend, stochastic, x_add = VARIANTS[variant]
+    p = fs.pack_oneway_denoiser(card, D_POSE, 40)
+    sched, tmap = make_diffusion("linear", 100, "ddim10")
+    x, mem, a, b, xa = _inputs(n, 40, n_mem, blend, seed=7 * n + cluster,
+                               x_add=True)
+    coefs = (fs.ddpm_coefficients(sched) if stochastic
+             else fs.ddim_coefficients(sched)).cuda()
+    args = dict(packed=p, x_T=x, mem_rows=mem, tmap=tmap.cuda(), coefs=coefs,
+                blend_a=a, blend_b=b, n_layers=N_LAYERS, heads=8,
+                num_steps=sched.num_timesteps, compute_dtype=torch.bfloat16,
+                stochastic=stochastic, seed=torch.tensor([91], device="cuda"),
+                x_add=xa if x_add else None)
+    before = fs.launches
+    k = fs._fused_ddim_cuda(**args, cluster=cluster)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 1 and fs.last_cluster == cluster
+    ref = fs.fused_ddim_sample_plain(**args)
+    assert torch.isfinite(k).all()
+    assert _rel(k, ref) < BAR
+
+
+@pytest.mark.cuda
+def test_cluster_noise_is_bit_equal_across_sizes(card):
+    """One step with coefficients (0, 0, 0, 0, 1) returns z: the same bits
+    whatever the cluster size, and the plain version's."""
+    p = fs.pack_oneway_denoiser(card, D_POSE, 40)
+    x, mem, _, _ = _inputs(3, 40, 16, False, seed=6)
+    seed = (7 << 32) | 99
+    zs = {c: fs._fused_ddim_cuda(
+        p, x, mem, torch.tensor([0], device="cuda"),
+        torch.tensor([[0.0, 0.0, 0.0, 0.0, 1.0]], device="cuda"), None, None,
+        N_LAYERS, 8, 1, torch.bfloat16, True, seed, cluster=c) for c in (1, 2, 4, 8)}
+    ref = fs.fused_noise(seed, 0, 3, 40, 128, device="cuda")
+    for c, z in zs.items():
+        assert torch.equal(z, zs[1]), c
+    assert float((zs[8] - ref).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cluster_plan_matches_the_library(card):
+    lib = fs._library()
+    nbytes = fs.smem_plan(40, 256, 128, 1024)[0]
+    for n in (1, 3, 16, 17, 33, 34, 64, 66, 67, 128, 200):
+        want = lib.fused_ddim_cluster_size(n, 8, nbytes)
+        assert fs.cluster_plan(n, 8, lambda c: fs.max_clusters(
+            lib, c, nbytes, "cuda:0")) == want, n
+    assert fs.cluster_plan(1, 8, lambda c: fs.max_clusters(
+        lib, c, nbytes, "cuda:0")) == 8
+
+
 @pytest.mark.cuda
 def test_kernel_noise_is_the_plain_noise(card):
     """One step with coefficients (0, 0, 0, 0, 1) returns z itself."""

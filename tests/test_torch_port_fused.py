@@ -166,6 +166,9 @@ def test_kernel_plan_limits(packs):
     # the longest window fits with half-strip staging
     nbytes, fc, half = fs.smem_plan(64, 256, 128, 1024)
     assert nbytes <= fs.SMEM_LIMIT and half and 1024 % fc == 0
+    # each block of a cluster holds the whole layout: the plan of one block
+    # per clip stands, byte for byte (214.5 KB at the flagship)
+    assert fs.smem_plan(40, 256, 128, 1024) == (214528, 1024, False)
     assert fs._kernel_plan(tp, torch.zeros(1, 64, DP),
                            torch.zeros(1, 128, DM), 8) == (fc, half)
     with pytest.raises(ValueError, match="at most"):
@@ -399,10 +402,41 @@ class _StubLibrary:
 
     def __init__(self):
         self.calls = []
+        self.blocks = []
 
     def fused_ddim_launch(self, ptrs, n_ptrs, dims, n_dims, stream):
         self.calls.append((list(ptrs)[:n_ptrs], list(dims)[:n_dims]))
+        self.blocks.append(dims[0] * dims[12])    # n clusters of C blocks
         return 0
+
+    def fused_ddim_max_clusters(self, c, smem):
+        assert 0 < smem <= fs.SMEM_LIMIT
+        return H100_CLUSTERS[c]
+
+
+# clusters of C blocks of 214.5 KB of shared memory each that an H100 SXM
+# runs at once, as cudaOccupancyMaxActiveClusters gave them on one: the
+# GPCs hold fewer clusters of 8 than 132 / 8
+H100_CLUSTERS = {8: 15, 4: 30, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("n,want", [(1, 8), (3, 8), (16, 4), (17, 4), (33, 2),
+                                    (34, 2), (64, 2), (66, 2), (67, 1),
+                                    (128, 1)])
+def test_cluster_plan(n, want):
+    """The largest cluster whose n clusters run in one wave."""
+    assert fs.cluster_plan(n, 8, H100_CLUSTERS.__getitem__) == want
+    # C must divide the heads: 4 heads never take clusters of 8, 2 heads
+    # never 4, and 1 head runs one block per clip
+    assert fs.cluster_plan(n, 4, H100_CLUSTERS.__getitem__) == (
+        4 if n <= 30 else 2 if n <= 66 else 1)
+    assert fs.cluster_plan(n, 2, H100_CLUSTERS.__getitem__) == (
+        2 if n <= 66 else 1)
+    assert fs.cluster_plan(n, 1, H100_CLUSTERS.__getitem__) == 1
+    # a card that runs no cluster of 8 at once (a smaller part)
+    small = {8: 0, 4: 8, 2: 16, 1: 33}
+    assert fs.cluster_plan(n, 8, small.__getitem__) == (
+        4 if n <= 8 else 2 if n <= 16 else 1)
 
 
 def test_cuda_wrapper_marshalling(packs, monkeypatch):
@@ -424,7 +458,9 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
     assert ptrs[0] == x.data_ptr() and ptrs[1] == out.data_ptr()
     assert ptrs[5] == a.data_ptr() and ptrs[6] == b.data_ptr()
     assert ptrs[7] is None and ptrs[8] is not None and ptrs[9] is not None
-    assert dims == [3, T, 16, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 0]
+    # 3 clips fit in one wave of clusters of 8: 24 blocks
+    assert dims == [3, T, 16, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 0, 8]
+    assert stub.blocks[-1] == 24 and fs.last_cluster == 8
     # the kernel-side transposed weights are made once per pack
     kt = fs.kernel_weights(p)
     assert ptrs[10] == kt["w_embx"].data_ptr() and ptrs[33] == kt["w_out"].data_ptr()
@@ -439,7 +475,22 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
                               torch.tensor([1234567890123]), x_add)
     ptrs, dims = stub.calls[-1]
     assert ptrs[7] == x_add.data_ptr() and ptrs[10] == kt["w_embx"].data_ptr()
-    assert dims == [3, T, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 1]
+    assert dims == [3, T, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 1, 8]
+    # the forced cluster size reaches the launch, n * C blocks of arguments
+    for c in fs.CLUSTER_SIZES:
+        fs._fused_ddim_cuda(p, x, mem92, tmap, torch.zeros(10, 5), a, b,
+                            N_LAYERS, 8, 10, torch.bfloat16, True, 7, x_add,
+                            cluster=c)
+        assert stub.calls[-1][1][12] == c and stub.blocks[-1] == 3 * c
+        assert stub.calls[-1][0][0] == x.data_ptr() and fs.last_cluster == c
+    for bad in (3, 16, 0):
+        with pytest.raises(ValueError, match="cluster must be one of"):
+            fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
+                                N_LAYERS, 8, 10, torch.bfloat16, cluster=bad)
+    # a cluster must own whole heads: 4 heads take no cluster of 8
+    with pytest.raises(ValueError, match="divide"):
+        fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
+                            N_LAYERS, 4, 10, torch.bfloat16, cluster=8)
     # the longest window asks for half-strip staging
     p64 = fs.pack_oneway_denoiser(packs[0], D_POSE, 64)
     x64, m128, _, _ = (None if v is None else torch.from_numpy(v)
@@ -447,6 +498,14 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
     fs._fused_ddim_cuda(p64, x64, m128, tmap, torch.zeros(10, 4), None, None,
                         N_LAYERS, 8, 10, torch.bfloat16)
     assert stub.calls[-1][1][:3] == [1, 64, 128] and stub.calls[-1][1][10] == 1
+    assert stub.calls[-1][1][12] == 8
+    # a refused launch raises; nothing retries with another cluster size
+    stub.fused_ddim_launch = lambda *a: 801
+    n_calls = len(stub.calls)
+    with pytest.raises(RuntimeError, match=r"clusters of 8 blocks\): CUDA error 801"):
+        fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
+                            N_LAYERS, 8, 10, torch.bfloat16)
+    assert len(stub.calls) == n_calls
 
     with pytest.raises(ValueError, match="bfloat16 operands"):
         fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,

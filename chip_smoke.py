@@ -13,14 +13,19 @@ Phases (any failure raises and the script exits non-zero):
      the flagship s2g_v2 and, with ``Model.type`` overridden, default and
      inpaint (92 memory rows), all with weights from a seeded generator;
   3. hold the fused kernel against its plain version on the same packed
-     bf16 weights and inputs (ddim50, batches 1/3/64): DDIM with the
-     identity and the x0 blend (also printed against the float32 scan
-     sampler), x_add, DDPM with either blend, the 92-row memory, and all of
-     them at once; print the moments of the kernel's noise;
+     bf16 weights and inputs (ddim50, batches 1/3/64), at the planned
+     cluster size and at every size the plan can choose (1, 2, 4, 8 blocks
+     per clip, forced): DDIM with the identity and the x0 blend (also
+     printed against the float32 scan sampler), x_add, DDPM with either
+     blend, the 92-row memory, and all of them at once; check that the
+     Python cluster plan is the library's; print the moments of the
+     kernel's noise and check it bit for bit against the plain version's
+     at every cluster size;
   4. time the kernel, its plain version and the bound at 1000 steps,
-     batches 1 and 64, for each variant;
+     batches 1 and 64, for each variant, at the planned cluster size;
   5. the main paths, each with the launch count set to 0 before it and read
-     after it: the flagship ``generate_sample`` (DDIM) at batches 1 and 64
+     after it (the cluster size used at batches 1 and 64 is printed and
+     must be above 1): the flagship ``generate_sample`` (DDIM) at batches 1 and 64
      and ``generate_sequence`` over two 10 s clips; the default type
      (DDIM, 92 memory rows); the inpaint type with DDPM and a seed blend;
      the flagship with DDPM; ``GestureStream`` against ``generate_sequence``
@@ -190,6 +195,17 @@ def main() -> int:
     if fs.scratch_elems(92, 256, 4) != \
             fs._library().fused_ddim_scratch_elems(92, 256, 4):
         raise AssertionError("Python and CUDA scratch sizes disagree")
+    nbytes = fs.smem_plan(WINDOW, 256, 128, 1024)[0]
+    occupancy = {c: fs.max_clusters(fs._library(), c, nbytes, dev)
+                 for c in fs.CLUSTER_SIZES}
+    plans = {n: fs.cluster_plan(n, 8, occupancy.__getitem__)
+             for n in (1, 3, 16, 17, 33, 64, 67, 128)}
+    log(f"[build] clusters of C blocks ({nbytes} bytes each) the card runs at "
+        f"once: {occupancy}; planned C by batch: {plans}")
+    for n, c in plans.items():
+        if fs._library().fused_ddim_cluster_size(n, 8, nbytes) != c:
+            raise AssertionError(f"Python and CUDA cluster plans disagree at "
+                                 f"batch {n}")
 
     # comparisons in true float32 (no TF32 in matmuls or cuDNN convolutions)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -238,16 +254,25 @@ def main() -> int:
            for mt, b in bundles.items()}
     scan50 = Generator(model, s50, t50, use_fused=False, device=dev)
     worst = {}               # variant -> [worst relative, worst absolute]
+    worst_c = {}             # cluster size -> worst relative
 
     def check(variant, label, args, scan=None):
         with torch.no_grad():
             k = fs.fused_ddim_sample(**args)
+            planned = fs.last_cluster
+            forced = {c: fs._fused_ddim_cuda(**args, cluster=c)
+                      for c in fs.CLUSTER_SIZES}
             torch.cuda.synchronize()
             p = fs.fused_ddim_sample_plain(**args)
         kk, pp = k[..., :D_POSE], p[..., :D_POSE]
         r, a = rel(kk, pp), float((kk - pp).abs().max())
+        per_c = {c: rel(kc[..., :D_POSE], pp) for c, kc in forced.items()}
         w = worst.setdefault(variant, [0.0, 0.0])
-        w[0], w[1] = max(w[0], r), max(w[1], a)
+        w[0], w[1] = max(w[0], r, *per_c.values()), max(
+            w[1], a, *(float((kc[..., :D_POSE] - pp).abs().max())
+                       for kc in forced.values()))
+        for c, rc in per_c.items():
+            worst_c[c] = max(worst_c.get(c, 0.0), rc)
         extra = ""
         if scan is not None:
             with torch.no_grad():
@@ -256,11 +281,15 @@ def main() -> int:
             extra = (f"; floor plain-bf16 vs plain-f32-operands "
                      f"{rel(pp, p32[..., :D_POSE]):.3e}; kernel vs fp32 scan "
                      f"{rel(kk, scan):.3e}")
-        log(f"[kernel-vs-plain] ddim50 {label}: max|d|/max|ref| {r:.3e} "
-            f"(max|d| {a:.3e}, max|ref| {float(pp.abs().max()):.3e}){extra}")
-        if not torch.isfinite(k).all() or r > KERNEL_BAR:
+        log(f"[kernel-vs-plain] ddim50 {label}: max|d|/max|ref| {r:.3e} at "
+            f"the planned C={planned} (max|d| {a:.3e}, max|ref| "
+            f"{float(pp.abs().max()):.3e}); forced C "
+            + ", ".join(f"{c}: {rc:.3e}" for c, rc in per_c.items()) + extra)
+        finite = all(bool(torch.isfinite(x).all()) for x in (k, *forced.values()))
+        if not finite or max(r, *per_c.values()) > KERNEL_BAR:
             raise AssertionError(
-                f"fused kernel off its plain version: {r:.3e} > bar {KERNEL_BAR}")
+                f"fused kernel off its plain version: {r:.3e} (forced C: "
+                f"{per_c}) > bar {KERNEL_BAR}")
 
     for n in (1, 3, 64):
         for blend in (False, True):
@@ -306,7 +335,9 @@ def main() -> int:
     worst_all = max(w[0] for w in worst.values())
     log(f"[kernel-vs-plain] bar {KERNEL_BAR:.0e} (max|d|/max|ref|), worst "
         f"{worst_all:.3e}; by variant: "
-        + ", ".join(f"{k} {w[0]:.3e}" for k, w in worst.items()))
+        + ", ".join(f"{k} {w[0]:.3e}" for k, w in worst.items())
+        + "; by forced cluster size: "
+        + ", ".join(f"C={c} {w:.3e}" for c, w in worst_c.items()))
 
     # the kernel's noise: one step with coefficients (0, 0, 0, 0, 1) gives z
     with torch.no_grad():
@@ -317,6 +348,13 @@ def main() -> int:
             [[0.0, 0.0, 0.0, 0.0, 1.0]], device=dev))
         z = fs.fused_ddim_sample(**args)
         zp = fs.fused_noise((9 << 32) | 4242, 0, 64, WINDOW, z.shape[2], dev)
+        zc = {c: fs._fused_ddim_cuda(**args, cluster=c) for c in fs.CLUSTER_SIZES}
+    z_equal = {c: bool(torch.equal(v, zp)) for c, v in zc.items()}
+    log(f"[kernel-noise] z equals the plain version's bit for bit, by forced "
+        f"cluster size: {z_equal}")
+    if not all(z_equal.values()):
+        raise AssertionError("the kernel's noise depends on the cluster size "
+                             "or differs from the plain version's")
     zm, zs = float(z.mean()), float(z.std())
     zskew = float((((z - zm) / zs) ** 3).mean())
     zdiff = float((z - zp).abs().max())
@@ -341,20 +379,22 @@ def main() -> int:
                 args = gens[mt].fused_args(wav, D_POSE, WINDOW, noise, ip, im,
                                            ramp, sample_alg=alg, seed=5)
                 ms = cuda_ms(lambda: fs.fused_ddim_sample(**args), reps=2)
+                cluster = fs.last_cluster
                 # the plain version's code is warm from phase 3
                 plain = cuda_ms(lambda: fs.fused_ddim_sample_plain(**args),
                                 reps=1, warmup=False)
             b, by, every = bound_ms(args)
             timings[variant, n] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                       bound_by=by)
+                                       bound_by=by, cluster=cluster)
             log(f"[kernel-time] {mt} {alg}{' x0-blend' if blend else ''}, n_mem "
                 f"{args['mem_rows'].shape[1]}, batch {n:2d}, 1000 steps: kernel "
-                f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms ({by}; "
+                f"{ms:.3f} ms (clusters of {cluster}), plain {plain:.3f} ms, bound {b:.3f} ms ({by}; "
                 f"{every:.3f} ms with the memory K/V counted on every step) "
                 f"[{smi}]")
 
     # -- phase 5: the main paths ---------------------------------------------
     launches = {}
+    used = {}                # (variant, batch) -> cluster size of the launch
 
     def sample_path(variant, mt, alg, batches, blend):
         """generate_sample at 1000 steps: 1 warm-up, 3 timed, 1 checked."""
@@ -372,13 +412,15 @@ def main() -> int:
             mean_ms, std_ms, _ = host_ms(call)
             out = call()
             launched = fs.launches - before
+            used[variant, n] = fs.last_cluster
             ok = (g.last_sample_path == "fused"
                   and tuple(out.shape) == (n, WINDOW, D_POSE)
                   and bool(torch.isfinite(out).all()))
             log(f"[generate_sample] {mt} {alg}{' x0-blend' if blend else ''}, "
                 f"batch {n:2d}, 1000 steps: {mean_ms:.1f} ms (std {std_ms:.1f}, "
                 f"{1e6 / mean_ms:.0f} steps/s), last_sample_path="
-                f"{g.last_sample_path}, kernel launches +{launched} [{smi}]")
+                f"{g.last_sample_path}, kernel launches +{launched}, clusters "
+                f"of {fs.last_cluster} [{smi}]")
             if not ok or launched != 5:
                 raise AssertionError(
                     f"generate_sample {mt} {alg} batch {n} did not run the fused "
@@ -386,6 +428,11 @@ def main() -> int:
         launches[variant] = launches.get(variant, 0) + fs.launches
 
     sample_path("ddim", "s2g_v2", "ddim", (1, 64), False)
+    log(f"[cluster] blocks per clip on the main path: batch 1 "
+        f"C={used['ddim', 1]}, batch 64 C={used['ddim', 64]}")
+    if used["ddim", 1] < 2 or used["ddim", 64] < 2:
+        raise AssertionError("the main path did not launch clusters of more "
+                             "than one block at batches 1 and 64")
 
     fs.launches = 0
     wav_long = seeded_audio(50, 2, 10.0)

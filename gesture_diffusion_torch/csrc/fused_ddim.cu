@@ -220,35 +220,40 @@ __device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
 // Cluster helpers.  csync: a barrier for what other blocks of the cluster
 // wrote (shared or global memory: barrier.cluster's arrive has release and
 // its wait acquire semantics); a block barrier when the cluster is one
-// block.  put_all: v into element i of every block's replica of `local`.
+// block.  put_rows: v(r) for rows [lo, hi) into element r * ld of every
+// block's replica of `dst` (the test of C is outside the row loop, which
+// the compiler then unrolls).
 __device__ __forceinline__ void csync(int C) {
+// Timing-breakdown hook (tools/fused_ddim_breakdown.py), off in real
+// builds: SKIP_CSYNC keeps only the block barrier in the step loop, to
+// price the cluster barriers (the first and last ones stay).
+#ifdef FUSED_DDIM_SKIP_CSYNC
+  C = 1;
+#endif
   if (C > 1) cg::this_cluster().sync(); else __syncthreads();
 }
 
-template <class T>
-__device__ __forceinline__ void put_all(T* local, int i, T v, int C) {
+template <class T, class V>
+__device__ __forceinline__ void put_rows(T* dst, int ld, int lo, int hi,
+                                         int C, const V& v) {
+// Timing-breakdown hook: LOCAL_PUT writes the block's own replica only,
+// to price the writes into the other blocks.
+#ifdef FUSED_DDIM_LOCAL_PUT
+  C = 1;
+#endif
   if (C == 1) {
-    local[i] = v;
+    for (int r = lo; r < hi; ++r) dst[r * ld] = v(r);
     return;
   }
   cg::cluster_group cl = cg::this_cluster();
-  for (int r = 0; r < C; ++r) cl.map_shared_rank(local, r)[i] = v;
+  for (int r = lo; r < hi; ++r) {
+    const T x = v(r);
+    for (int k = 0; k < C; ++k) cl.map_shared_rank(dst, k)[r * ld] = x;
+  }
 }
 
-// One strip of a product's result: the sum, in a fixed order, of the kp
-// partial accumulators its kp warps staged in their areas (ws floats
-// apart), each mt*16 rows of sw columns.
-struct Part {
-  const float* st; int ws, kp, sw;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    float v = st[r * sw + c];
-    for (int i = 1; i < kp; ++i) v += st[i * ws + r * sw + c];
-    return v;
-  }
-};
-
-// Rows [lo, hi) of `rows` that part q of kp runs the epilogue on: an even
-// count each, so that the update's noise pairs stay whole.
+// Rows [lo, hi) of `rows` that part q of kp sums and runs the epilogue on:
+// an even count each, so that the update's noise pairs stay whole.
 __device__ __forceinline__ void part_rows(int rows, int q, int kp, int& lo,
                                           int& hi) {
   const int rc = ((rows + kp - 1) / kp + 1) & ~1;
@@ -281,11 +286,13 @@ struct Ctx {
 // C[rows, N] = A[rows, K] (bf16, shared, row stride lda) x W[K, N], with W
 // given transposed: Wt[N, K] (bf16, global, row stride ldk).  Unit
 // u = s * kp + q (strip s, K part q) goes to warp u mod 8C of the cluster,
-// which accumulates all mt row tiles of the strip over its part of K,
+// which accumulates all mt row tiles of the strip over its part of K and
 // stores them to its staging area (f32, mt*16 rows of sw columns: the whole
-// strip when sw == STRIP, else one 16-column half after the other) and,
-// once the kp parts are staged, runs epi(part sum, first column, lane, q,
-// kp) for its share of the rows.  N % STRIP == 0, K % 16 == 0.
+// strip when sw == STRIP, else one 16-column half after the other).  With
+// kp > 1 the strip's warps, after a block barrier, each sum a share of the
+// rows of all parts in a fixed order into the first part's area, and after
+// another run epi(stage, sw, first column, lane, q, kp) on that area for
+// their share of the rows.  N % STRIP == 0, K % 16 == 0.
 template <class Epi>
 __device__ __forceinline__ void matmul(const Ctx& x, const bf16* A, int lda,
                                        int mt, const bf16* __restrict__ Wt,
@@ -349,7 +356,7 @@ __device__ __forceinline__ void matmul(const Ctx& x, const bf16* A, int lda,
         for (int j = 0; j < NT; ++j) b[j] = bn[j];
       }
     }
-    const Part part{stage - q * x.ws, x.ws, kp, x.sw};
+    float* st0 = stage - q * x.ws;    // the strip's first part
     const int halves = x.sw == STRIP ? 1 : NT;
     for (int hf = 0; hf < halves; ++hf) {
       if (on) {
@@ -368,27 +375,43 @@ __device__ __forceinline__ void matmul(const Ctx& x, const bf16* A, int lda,
           }
         }
       }
-      if (kp > 1) __syncthreads(); else __syncwarp();
-      if (on) epi(part, n0 + 16 * hf, lane, q, kp);
+      if (kp > 1) {
+        __syncthreads();
+        if (on && lane < x.sw) {
+          int lo, hi;
+          part_rows(16 * mt, q, kp, lo, hi);
+          for (int r = lo; r < hi; ++r) {
+            float v = st0[r * x.sw + lane];
+            for (int i = 1; i < kp; ++i) v += st0[i * x.ws + r * x.sw + lane];
+            st0[r * x.sw + lane] = v;
+          }
+        }
+        __syncthreads();
+      } else {
+        __syncwarp();
+      }
+      if (on) epi(st0, x.sw, n0 + 16 * hf, lane, q, kp);
       if (kp > 1) __syncthreads(); else __syncwarp();
     }
   }
 }
 
 // Epilogues: lane c < sw owns column n0 + c of the staged columns and walks
-// its share of the rows (part_rows); a(r, c) is the product's value.
+// its share of the rows (part_rows); st has row stride sw.
 
 // h = acc + b_embx + pe_x, into every replica
 struct EpiEmbX {
   float* h; const bf16* b; const float* pe; int rows, d, C;
-  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
-    if (c >= a.sw) return;
+  __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
+                                            int c, int q, int kp) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = bf(b[n]);
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
-    for (int r = lo; r < hi; ++r)
-      put_all(h, r * d + n, (a(r, c) + bias) + pe[r * d + n], C);
+    put_rows(h + n, d, lo, hi, C, [&](int r) {
+      return (st[r * sw + c] + bias) + pe[r * d + n];
+    });
   }
 };
 
@@ -398,8 +421,9 @@ struct EpiEmbX {
 struct EpiDconv {
   bf16* out; int ldo; const bf16* b; const bf16* taps; const bf16* tb;
   int ntap, rows, hmod, C;
-  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
-    if (c >= a.sw) return;
+  __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
+                                            int c, int q, int kp) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
@@ -408,9 +432,10 @@ struct EpiDconv {
                      : cg::this_cluster().map_shared_rank(out, (n % hmod) / (hmod / C));
     const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
                 w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
-    float prev = lo > 0 ? a(lo - 1, c) + bias : 0.0f, cur = a(lo, c) + bias;
+    float prev = lo > 0 ? st[(lo - 1) * sw + c] + bias : 0.0f;
+    float cur = st[lo * sw + c] + bias;
     for (int r = lo; r < hi; ++r) {
-      const float nxt = (r + 1 < rows) ? a(r + 1, c) + bias : 0.0f;
+      const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
       o[r * ldo + n] = __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
       prev = cur;
       cur = nxt;
@@ -427,17 +452,18 @@ struct EpiDconv {
 struct EpiMemKV {
   bf16* kv; int d; const bf16* b; const bf16* taps; const bf16* tb;
   int r0, rows, o_lo, o_hi;
-  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
-    if (c >= a.sw) return;
+  __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
+                                            int c, int q, int kp) const {
+    if (c >= sw) return;
     const int n = n0 + c, ntap = 2 * d;
     const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
                 w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
     for (int r = imax(lo, o_lo); r < imin(hi, o_hi); ++r) {
-      const float prev = r > 0 ? a(r - 1, c) + bias : 0.0f;
-      const float cur = a(r, c) + bias;
-      const float nxt = (r + 1 < rows) ? a(r + 1, c) + bias : 0.0f;
+      const float prev = r > 0 ? st[(r - 1) * sw + c] + bias : 0.0f;
+      const float cur = st[r * sw + c] + bias;
+      const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
       kv[(size_t)(r0 + r) * ntap + n] =
           __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
     }
@@ -447,14 +473,16 @@ struct EpiMemKV {
 // h += acc + b (b may be null), into every replica
 struct EpiResid {
   float* h; const bf16* b; int rows, d, C;
-  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
-    if (c >= a.sw) return;
+  __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
+                                            int c, int q, int kp) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = b ? bf(b[n]) : 0.0f;
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
-    for (int r = lo; r < hi; ++r)
-      put_all(h, r * d + n, h[r * d + n] + (a(r, c) + bias), C);
+    put_rows(h + n, d, lo, hi, C, [&](int r) {
+      return h[r * d + n] + (st[r * sw + c] + bias);
+    });
   }
 };
 
@@ -462,16 +490,17 @@ struct EpiResid {
 // the column in the chunk
 struct EpiRelu2 {
   bf16* f; int ldf; const bf16* b; int rows, C;
-  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
-    if (c >= a.sw) return;
+  __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
+                                            int c, int q, int kp) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = bf(b[n]);
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
-    for (int r = lo; r < hi; ++r) {
-      const float v = fmaxf(a(r, c) + bias, 0.0f);
-      put_all(f, r * ldf + n, __float2bfloat16(v * v), C);
-    }
+    put_rows(f + n, ldf, lo, hi, C, [&](int r) {
+      const float v = fmaxf(st[r * sw + c] + bias, 0.0f);
+      return __float2bfloat16(v * v);
+    });
   }
 };
 
@@ -506,8 +535,9 @@ struct EpiUpdate {
     }
   }
 
-  __device__ void operator()(const Part& a, int n0, int c, int q, int kp) const {
-    if (c >= a.sw) return;
+  __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
+                                            int c, int q, int kp) const {
+    if (c >= sw) return;
     const int n = n0 + c;
     const float bias = b[n];
     int lo, hi;
@@ -520,8 +550,8 @@ struct EpiUpdate {
         z0 = box_muller(w[0], w[1]);
         z1 = box_muller(w[2], w[3]);
       }
-      one(r * dp + n, a(r, c) + bias, z0);
-      if (r + 1 < rows) one((r + 1) * dp + n, a(r + 1, c) + bias, z1);
+      one(r * dp + n, st[r * sw + c] + bias, z0);
+      if (r + 1 < rows) one((r + 1) * dp + n, st[(r + 1) * sw + c] + bias, z1);
     }
   }
 };
@@ -652,9 +682,9 @@ __device__ void attention(const bf16* q, int ldq, const bf16* k, int ldk,
         wmma::store_matrix_sync(obuf + e, oc, dk, wmma::mem_row_major);
       }
       __syncwarp();
-      for (int r = 0; r < rows; ++r)
-        for (int c = lane; c < dk; c += 32)
-          put_all(o, (i0 + r) * ldo + hd + c, __float2bfloat16(obuf[r * dk + c]), C);
+      for (int c = lane; c < dk; c += 32)
+        put_rows(o + (size_t)i0 * ldo + hd + c, ldo, 0, rows, C,
+                 [&](int r) { return __float2bfloat16(obuf[r * dk + c]); });
       __syncwarp();     // sbuf is rewritten by the next pass
     }
   }
@@ -697,7 +727,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
   for (int i = tid; i < (L.total - L.za) / 4; i += NTHREADS)
     reinterpret_cast<uint32_t*>(smem + L.za)[i] = 0u;
   for (int i = rank * NTHREADS + tid; i < T * DP; i += C * NTHREADS) xs[i] = xg[i];
-  csync(C);
+  if (C > 1) cg::this_cluster().sync(); else __syncthreads();
 
   // memory K and V of every layer, once: chunks of 16*mtx memory rows that
   // overlap by two, so that each row's dconv sees its real neighbours; each
@@ -797,6 +827,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
                      (uint32_t)s, (uint32_t)clip});
     csync(C);
   }
+  // no block leaves while another may still write into its shared memory
+  if (C > 1) cg::this_cluster().sync();
 }
 
 extern "C" int fused_ddim_smem_bytes(int t, int d, int dp, int fc, int half) {

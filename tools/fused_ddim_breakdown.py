@@ -9,11 +9,13 @@ the flagship shapes through the package's wrapper: beat-ours, T 40,
 ``--n-mem`` memory rows (32, the flagship's, by default; 92 is the default
 and inpaint model types'), seeded random weights, the first ``--steps``
 steps of the 1000-step schedule.  It prints device microseconds per step
-(CUDA events) for batches 1 and 64.  A skipped build computes garbage; only
-its time is read.
+(CUDA events) for batches 1 and 64, each at the cluster size the wrapper
+plans for it (``cluster_plan``: 8 at batch 1, 2 at batch 64 on an H100)
+or at each size that ``--cluster`` forces, and names the size on every
+line.  A skipped build computes garbage; only its time is read.
 
     python3 tools/fused_ddim_breakdown.py [--steps 200] [--n-mem 32 92]
-        [--variant fast=-use_fast_math ...] [--source a.cu ...]
+        [--cluster 1 8] [--variant fast=-use_fast_math ...] [--source a.cu ...]
 
 Sources default to the package's ``csrc/fused_ddim.cu``.  Several sources
 (e.g. the parent commit's, from ``git show``) are timed in turns in one
@@ -73,6 +75,9 @@ def main() -> int:
     ap.add_argument("--variant", nargs="*", default=[], metavar="NAME=FLAGS",
                     help="further builds, e.g. fast=-use_fast_math "
                          "(comma-separated nvcc flags)")
+    ap.add_argument("--cluster", type=int, nargs="*", default=[None],
+                    help="blocks per clip to force, one run each (default: "
+                         "the planned size)")
     ap.add_argument("--source", nargs="*", default=[
         os.path.join(REPO, "gesture_diffusion_torch", "csrc", "fused_ddim.cu")])
     args = ap.parse_args()
@@ -98,12 +103,13 @@ def main() -> int:
         x = torch.zeros(n, 40, 128, device="cuda")
         x[..., :123] = torch.randn(n, 40, 123, generator=g, device="cuda")
         mem = torch.randn(n, n_mem, 256, generator=g, device="cuda")
-        for tag, lib in libs:
+        for (tag, lib), cluster in ((t, c) for t in libs for c in args.cluster):
             fs._LIB = lib
 
             def run():
-                return fs.fused_ddim_sample(packed, x, mem, tm, cf, None, None,
-                                            4, 8, s)
+                return fs._fused_ddim_cuda(packed, x, mem, tm, cf, None, None,
+                                           4, 8, s, torch.bfloat16,
+                                           cluster=cluster)
 
             run()
             torch.cuda.synchronize()
@@ -113,9 +119,9 @@ def main() -> int:
             run()
             e1.record()
             torch.cuda.synchronize()
-            print(f"source {tag:10s} n_mem {n_mem:3d} batch {n:2d}: "
-                  f"{e0.elapsed_time(e1) / s * 1e3:8.1f} us/step [{smi}]",
-                  flush=True)
+            print(f"source {tag:10s} n_mem {n_mem:3d} batch {n:2d} cluster "
+                  f"{fs.last_cluster}: {e0.elapsed_time(e1) / s * 1e3:8.1f} "
+                  f"us/step [{smi}]", flush=True)
     fs._LIB = None
     return 0
 

@@ -220,9 +220,11 @@ __device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
 // Cluster helpers.  csync: a barrier for what other blocks of the cluster
 // wrote (shared or global memory: barrier.cluster's arrive has release and
 // its wait acquire semantics); a block barrier when the cluster is one
-// block.  put_rows: v(r) for rows [lo, hi) into element r * ld of every
-// block's replica of `dst` (the test of C is outside the row loop, which
-// the compiler then unrolls).
+// block.  share: after the lanes of a warp wrote rows [lo, hi) x columns
+// [n0, n0 + cols) of `buf` (row stride ld) into their own block's replica,
+// the warp copies them into the replicas of blocks [k0, k1), 16 bytes per
+// lane and store (ld, n0 and cols are multiples of 8 bf16 or 4 floats, and
+// every area is 128-byte aligned).
 __device__ __forceinline__ void csync(int C) {
 // Timing-breakdown hook (tools/fused_ddim_breakdown.py), off in real
 // builds: SKIP_CSYNC keeps only the block barrier in the step loop, to
@@ -233,22 +235,24 @@ __device__ __forceinline__ void csync(int C) {
   if (C > 1) cg::this_cluster().sync(); else __syncthreads();
 }
 
-template <class T, class V>
-__device__ __forceinline__ void put_rows(T* dst, int ld, int lo, int hi,
-                                         int C, const V& v) {
+template <class T>
+__device__ __forceinline__ void share(T* buf, int ld, int n0, int cols, int lo,
+                                      int hi, int k0, int k1) {
 // Timing-breakdown hook: LOCAL_PUT writes the block's own replica only,
 // to price the writes into the other blocks.
 #ifdef FUSED_DDIM_LOCAL_PUT
-  C = 1;
+  return;
 #endif
-  if (C == 1) {
-    for (int r = lo; r < hi; ++r) dst[r * ld] = v(r);
-    return;
-  }
+  __syncwarp();
   cg::cluster_group cl = cg::this_cluster();
-  for (int r = lo; r < hi; ++r) {
-    const T x = v(r);
-    for (int k = 0; k < C; ++k) cl.map_shared_rank(dst, k)[r * ld] = x;
+  const int self = (int)cl.block_rank(), lane = threadIdx.x & 31;
+  const int per = 16 / (int)sizeof(T), vr = cols / per, nv = (hi - lo) * vr;
+  for (int i = lane; i < nv; i += 32) {
+    const int off = (lo + i / vr) * ld + n0 + (i % vr) * per;
+    const int4 v = *reinterpret_cast<const int4*>(buf + off);
+    for (int k = k0; k < k1; ++k)
+      if (k != self)
+        *reinterpret_cast<int4*>(cl.map_shared_rank(buf + off, k)) = v;
   }
 }
 
@@ -404,41 +408,47 @@ struct EpiEmbX {
   float* h; const bf16* b; const float* pe; int rows, d, C;
   __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
                                             int c, int q, int kp) const {
-    if (c >= sw) return;
-    const int n = n0 + c;
-    const float bias = bf(b[n]);
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
-    put_rows(h + n, d, lo, hi, C, [&](int r) {
-      return (st[r * sw + c] + bias) + pe[r * d + n];
-    });
+    if (c < sw) {
+      const int n = n0 + c;
+      const float bias = bf(b[n]);
+      for (int r = lo; r < hi; ++r)
+        h[r * d + n] = (st[r * sw + c] + bias) + pe[r * d + n];
+    }
+    if (C > 1) share(h, d, n0, sw, lo, hi, 0, C);
   }
 };
 
 // y = dconv3(acc + b) over the rows, stored bf16 (attention operands) in
-// the block that owns column n's head: columns n mod hmod of [0, hmod)
-// go to blocks in C equal slices
+// the block's own replica and in the block that owns column n's head:
+// columns n mod hmod of [0, hmod) go to blocks in C equal slices
 struct EpiDconv {
   bf16* out; int ldo; const bf16* b; const bf16* taps; const bf16* tb;
   int ntap, rows, hmod, C;
   __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
                                             int c, int q, int kp) const {
-    if (c >= sw) return;
-    const int n = n0 + c;
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
-    if (lo >= hi) return;
-    bf16* o = C == 1 ? out
-                     : cg::this_cluster().map_shared_rank(out, (n % hmod) / (hmod / C));
-    const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
-                w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
-    float prev = lo > 0 ? st[(lo - 1) * sw + c] + bias : 0.0f;
-    float cur = st[lo * sw + c] + bias;
-    for (int r = lo; r < hi; ++r) {
-      const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
-      o[r * ldo + n] = __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
-      prev = cur;
-      cur = nxt;
+    if (lo >= hi) return;                  // the same for every lane
+    if (c < sw) {
+      const int n = n0 + c;
+      const float bias = bf(b[n]), w0 = bf(taps[n]), w1 = bf(taps[ntap + n]),
+                  w2 = bf(taps[2 * ntap + n]), db = bf(tb[n]);
+      float prev = lo > 0 ? st[(lo - 1) * sw + c] + bias : 0.0f;
+      float cur = st[lo * sw + c] + bias;
+      for (int r = lo; r < hi; ++r) {
+        const float nxt = (r + 1 < rows) ? st[(r + 1) * sw + c] + bias : 0.0f;
+        out[r * ldo + n] =
+            __float2bfloat16(((prev * w0 + cur * w1) + nxt * w2) + db);
+        prev = cur;
+        cur = nxt;
+      }
+    }
+    // each 16 columns belong to one head, hence to one block
+    for (int g = 0; C > 1 && g < sw; g += 16) {
+      const int k = ((n0 + g) % hmod) / (hmod / C);
+      share(out, ldo, n0 + g, 16, lo, hi, k, k + 1);
     }
   }
 };
@@ -475,14 +485,14 @@ struct EpiResid {
   float* h; const bf16* b; int rows, d, C;
   __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
                                             int c, int q, int kp) const {
-    if (c >= sw) return;
-    const int n = n0 + c;
-    const float bias = b ? bf(b[n]) : 0.0f;
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
-    put_rows(h + n, d, lo, hi, C, [&](int r) {
-      return h[r * d + n] + (st[r * sw + c] + bias);
-    });
+    if (c < sw) {
+      const int n = n0 + c;
+      const float bias = b ? bf(b[n]) : 0.0f;
+      for (int r = lo; r < hi; ++r) h[r * d + n] += st[r * sw + c] + bias;
+    }
+    if (C > 1) share(h, d, n0, sw, lo, hi, 0, C);
   }
 };
 
@@ -492,15 +502,17 @@ struct EpiRelu2 {
   bf16* f; int ldf; const bf16* b; int rows, C;
   __device__ __forceinline__ void operator()(const float* st, int sw, int n0,
                                             int c, int q, int kp) const {
-    if (c >= sw) return;
-    const int n = n0 + c;
-    const float bias = bf(b[n]);
     int lo, hi;
     part_rows(rows, q, kp, lo, hi);
-    put_rows(f + n, ldf, lo, hi, C, [&](int r) {
-      const float v = fmaxf(st[r * sw + c] + bias, 0.0f);
-      return __float2bfloat16(v * v);
-    });
+    if (c < sw) {
+      const int n = n0 + c;
+      const float bias = bf(b[n]);
+      for (int r = lo; r < hi; ++r) {
+        const float v = fmaxf(st[r * sw + c] + bias, 0.0f);
+        f[r * ldf + n] = __float2bfloat16(v * v);
+      }
+    }
+    if (C > 1) share(f, ldf, n0, sw, lo, hi, 0, C);
   }
 };
 
@@ -682,9 +694,10 @@ __device__ void attention(const bf16* q, int ldq, const bf16* k, int ldk,
         wmma::store_matrix_sync(obuf + e, oc, dk, wmma::mem_row_major);
       }
       __syncwarp();
-      for (int c = lane; c < dk; c += 32)
-        put_rows(o + (size_t)i0 * ldo + hd + c, ldo, 0, rows, C,
-                 [&](int r) { return __float2bfloat16(obuf[r * dk + c]); });
+      for (int r = 0; r < rows; ++r)
+        for (int c = lane; c < dk; c += 32)
+          o[(i0 + r) * ldo + hd + c] = __float2bfloat16(obuf[r * dk + c]);
+      if (C > 1) share(o, ldo, hd, dk, i0, i0 + rows, 0, C);
       __syncwarp();     // sbuf is rewritten by the next pass
     }
   }

@@ -15,7 +15,8 @@ or at each size that ``--cluster`` forces, and names the size on every
 line.  A skipped build computes garbage; only its time is read.
 
     python3 tools/fused_ddim_breakdown.py [--steps 200] [--n-mem 32 92]
-        [--cluster 1 8] [--variant fast=-use_fast_math ...] [--source a.cu ...]
+        [--cluster 1 8] [--variant fast=-use_fast_math ...] [--only all ...]
+        [--source a.cu ...]
 
 Sources default to the package's ``csrc/fused_ddim.cu``.  Several sources
 (e.g. the parent commit's, from ``git show``) are timed in turns in one
@@ -75,6 +76,8 @@ def main() -> int:
     ap.add_argument("--variant", nargs="*", default=[], metavar="NAME=FLAGS",
                     help="further builds, e.g. fast=-use_fast_math "
                          "(comma-separated nvcc flags)")
+    ap.add_argument("--only", nargs="*", default=None, metavar="NAME",
+                    help="build only these variants (e.g. all neither)")
     ap.add_argument("--cluster", type=int, nargs="*", default=[None],
                     help="blocks per clip to force, one run each (default: "
                          "the planned size)")
@@ -97,7 +100,9 @@ def main() -> int:
     cf = fs.ddim_coefficients(sched)[-s:].cuda()
     extra = tuple((v.split("=", 1)[0], tuple(v.split("=", 1)[1].split(",")))
                   for v in args.variant)
-    libs = build_all_variants(args.source, VARIANTS + extra)
+    variants = tuple(v for v in VARIANTS + extra
+                     if args.only is None or v[0] in args.only)
+    libs = build_all_variants(args.source, variants)
     g = torch.Generator(device="cuda").manual_seed(1)
     for n, n_mem in ((n, m) for m in args.n_mem for n in (1, 64)):
         x = torch.zeros(n, 40, 128, device="cuda")

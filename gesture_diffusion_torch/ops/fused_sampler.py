@@ -645,14 +645,15 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
     fc, half = _kernel_plan(packed, x_T, mem_rows, heads)
     n, t, dp = x_T.shape
+    d_model = packed.w_emm.shape[0]
     lib = _library()
     if cluster is None:
-        nbytes = smem_bytes(t, packed.w_emm.shape[0], dp, fc, half)
-        cluster = cluster_plan(n, heads, lambda c: max_clusters(lib, c, nbytes, dev))
+        nbytes = smem_bytes(t, d_model, dp, fc, half)
+        cluster = cluster_plan(n, heads,
+                               lambda c: max_clusters(lib, c, nbytes, dev))
     elif cluster not in CLUSTER_SIZES or heads % cluster:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES} and divide "
                          f"heads ({heads}); got {cluster}")
-    d_model = packed.w_emm.shape[0]
     mem = mem_rows.to(torch.bfloat16)
     tok = step_tokens(packed, tmap, compute_dtype).to(torch.bfloat16).contiguous()
     # five columns for either sampler; DDIM leaves the last one unread

@@ -569,9 +569,15 @@ struct EpiUpdate {
 };
 
 // z = normalize(h) (f32 statistics) -> bf16 operand rows; warp per row
-__device__ void layer_norm(const float* h, int rows, int d, bf16* z, int ldz) {
+// over the cluster's 8C warps, each row copied into every block's replica
+// (every replica of h is the same, so any block may normalise any row)
+__device__ void layer_norm(const float* h, int rows, int d, bf16* z, int ldz,
+                           int C, int rank) {
+#ifdef FUSED_DDIM_SKIP_LN
+  return;  // timing-breakdown hook, off in real builds
+#endif
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += NWARPS) {
+  for (int r = rank * NWARPS + warp; r < rows; r += NWARPS * C) {
     const float* x = h + r * d;
     float s = 0.0f;
     for (int k = lane; k < d; k += 32) s += x[k];
@@ -584,6 +590,7 @@ __device__ void layer_norm(const float* h, int rows, int d, bf16* z, int ldz) {
     const float rs = rsqrtf(warp_sum(v) / d + LN_EPS);
     for (int k = lane; k < d; k += 32)
       z[r * ldz + k] = __float2bfloat16((x[k] - mu) * rs);
+    if (C > 1) share(z, ldz, 0, d, r, r + 1, 0, C);
   }
 }
 
@@ -780,8 +787,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
 
     for (int l = 0; l < p.layers; ++l) {
       // self-attention: merged QKV + dconv -> attention -> out-proj
-      layer_norm(h, T, D, za, L.lda);
-      __syncthreads();
+      layer_norm(h, T, D, za, L.lda, C, rank);
+      csync(C);
       matmul(cx, za, L.lda, L.mtx, p.self_wqkv + l * 3 * dd, D, D, 3 * D,
              EpiDconv{big, L.ldqkv, p.self_bqkv + l * 3 * D,
                       p.self_dconv + l * 9 * D, p.self_dbias + l * 3 * D,
@@ -796,13 +803,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
 
       // cross-attention: q from h; memory rows 0 and 1 of K and V from the
       // tile [token; memory row 1; memory row 2], the rest is in the scratch
-      layer_norm(h, T, D, za, L.lda);
+      layer_norm(h, T, D, za, L.lda, C, rank);
       const int mrows = imin(NM, 3);
       for (int i = tid; i < mrows * D; i += NTHREADS) {
         const int r = i / D, c = i % D;
         ma[r * L.ldm + c] = r == 0 ? p.tok[(size_t)s * D + c] : mg[r * D + c];
       }
-      __syncthreads();
+      csync(C);
       bf16* kv = kvs + l * kv_layer;
       matmul(cx, za, L.lda, L.mtx, p.cross_wq + l * dd, D, D, D,
              EpiDconv{big, L.ldcq, p.cross_bq + l * D, p.cross_dq + l * 3 * D,
@@ -819,8 +826,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       csync(C);
 
       // squared-ReLU FF in hidden chunks of FC
-      layer_norm(h, T, D, za, L.lda);
-      __syncthreads();
+      layer_norm(h, T, D, za, L.lda, C, rank);
+      csync(C);
       for (int c0 = 0; c0 < F; c0 += FC) {
         matmul(cx, za, L.lda, L.mtx, p.ff_w1 + ((size_t)l * F + c0) * D, D, D,
                FC, EpiRelu2{big, L.ldf, p.ff_b1 + (size_t)l * F + c0, T, C});
@@ -831,8 +838,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
       }
     }
 
-    layer_norm(h, T, D, za, L.lda);
-    __syncthreads();
+    layer_norm(h, T, D, za, L.lda, C, rank);
+    csync(C);
     const float* cf = p.coefs + (size_t)s * 5;
     matmul(cx, za, L.lda, L.mtx, p.w_out, D, D, DP,
            EpiUpdate{xs, p.b_out, ba, bb, cf[0], cf[1], cf[2], cf[3], cf[4], T, DP,

@@ -40,11 +40,13 @@
 // every block's replica through distributed shared memory (or, for q/k/v
 // and the cross queries, into the block that owns the element's head).  A
 // cluster barrier separates a phase from the next one that reads what
-// another block wrote; LayerNorm runs in every block on its own replica of
-// h, which is bitwise the same in all.  Attention runs on the tensor cores
-// too, block r taking heads [r H/C, (r+1) H/C) and one warp per (head,
-// 16-query pass): S = Q K^T into the warp's staging area, an f32 softmax
-// over each row there, P rounded to bf16 in place, then O = P V.
+// another block wrote.  Every replica of h is bitwise the same, so a
+// LayerNorm row is normalised by one warp of the cluster, from its own
+// block's replica, and copied like an output.  Attention runs on the
+// tensor cores too, block r taking heads [r H/C, (r+1) H/C) and one warp
+// per (head, 16-query pass): S = Q K^T into the warp's staging area, an
+// f32 softmax over each row there, P rounded to bf16 in place, then
+// O = P V.
 //
 // Memory design (the memory K and V are hoisted out of the step loop): only
 // memory rows 0 and 1 change from step to step: row 0 is the timestep
@@ -746,7 +748,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
   // cluster barrier also keeps other blocks' writes out until this is done
   for (int i = tid; i < (L.total - L.za) / 4; i += NTHREADS)
     reinterpret_cast<uint32_t*>(smem + L.za)[i] = 0u;
-  for (int i = rank * NTHREADS + tid; i < T * DP; i += C * NTHREADS) xs[i] = xg[i];
+  for (int i = rank * NTHREADS + tid; i < T * DP; i += C * NTHREADS)
+    xs[i] = xg[i];
   if (C > 1) cg::this_cluster().sync(); else __syncthreads();
 
   // memory K and V of every layer, once: chunks of 16*mtx memory rows that

@@ -31,7 +31,16 @@ Phases (any failure raises and the script exits non-zero):
      the flagship with DDPM; ``GestureStream`` against ``generate_sequence``
      on the same noise; ``eval_bpd`` at two ``t_block``s (no hand-written
      kernel on that path);
-  6. print the kernels' JSON line and, last, the device line.
+  6. training at full width (``configs/beat-ours.json``, batch 64, T 40,
+     32 000-sample wav, 1000 diffusion steps) on seeded synthetic data of
+     8 batches, through ``Trainer.train``: the train step's ms, windows/s
+     and peak memory for the config's bf16 encoder and for f32, each step's
+     loss and grad_norm; one step at batch 4 on the card against the same
+     step on the CPU (TF32 off); a resumed Trainer's next step against the
+     uninterrupted run's; and the trained weights served through the fused
+     kernel (``Generator.update_variables``), held against its plain
+     version.  The training path launches no hand-written kernel;
+  7. print the kernels' JSON line and, last, the device line.
 
 Needs CUDA; imports nothing of JAX.
 """
@@ -51,6 +60,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 D_POSE, WINDOW, SEED_LEN, FPS, SR = 123, 40, 10, 20, 16000
 TRANS_FACTOR = 0.575
 KERNEL_BAR = 5e-3        # max |kernel - plain| / max |plain|, see phase 3
+TRAIN_BATCH, TRAIN_BATCHES, TRAIN_EPOCHS = 64, 8, 3
+# one step, card against CPU with TF32 off: cuDNN and the CPU sum the
+# convolution gradients in other orders.  float32: the loss and the BN
+# statistics to 1e-4, the gradient norm to 1e-3, every gradient outside the
+# SE-ResNet trunk to 1e-3 of its max|g|.  The trunk's train-mode gradients
+# are ill-conditioned on random weights (float32 on either side is off its
+# float64 result by up to percents: tests/test_torch_port_training.py), so
+# in float32 they are printed, and every gradient is held to 1e-3 in
+# float64
+TRAIN_LOSS_BAR, TRAIN_NORM_BAR, TRAIN_GRAD_BAR = 1e-4, 1e-3, 1e-3
+TRUNK = "speech_encoder.wav_encoder.feat_extractor."
 # eval_bpd at two t_blocks: the model runs at batch 8 or 400, so cuBLAS and
 # cuDNN sum in float32 in another order; relative to max |vb|
 BPD_BAR = 1e-3
@@ -156,6 +176,236 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def synthetic_training_set(n: int, seed: int):
+    """Speech-like audio and smooth poses that follow its loudness, so the
+    loss has something to learn."""
+    from gesture_diffusion_torch.training import ArrayDataset
+
+    rng = np.random.default_rng(seed)
+    wav = seeded_audio(seed, n, WINDOW / FPS)
+    env = np.abs(wav).reshape(n, WINDOW, -1).mean(-1)              # (n, T)
+    drift = np.cumsum(rng.normal(0, 0.1, (n, WINDOW, D_POSE)), axis=1)
+    pose = 0.3 * drift + 4.0 * env[..., None] * rng.normal(1, 0.2, (1, 1, D_POSE))
+    return ArrayDataset({"wav": wav, "pose": pose.astype(np.float32)})
+
+
+def train_paths(dev, smi):
+    """Phase 6: training at full width.  Returns a summary dict; raises on
+    any failed check."""
+    import tempfile
+
+    from gesture_diffusion_torch.diffusion import make_diffusion
+    from gesture_diffusion_torch.generation import Generator
+    from gesture_diffusion_torch.models import build_all
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.training import (Trainer, iter_batches,
+                                                  make_train_step)
+    from gesture_diffusion_torch.utils import JsonConfig, RngStream
+
+    cfg = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
+    enc_dtype = cfg.Train.get("encoder_dtype")
+    train_ds = synthetic_training_set(TRAIN_BATCH * TRAIN_BATCHES, 70)
+    val_ds = synthetic_training_set(TRAIN_BATCH, 71)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    summary = {}
+
+    def bundle(encoder_dtype):
+        return build_all(cfg, D_POSE, device=dev, encoder_dtype=encoder_dtype,
+                         generator=torch.Generator().manual_seed(0))
+
+    def trainer_of(b, log_dir):
+        return Trainer(b.model, b.schedule, b.make_optimizer(), b.lr_schedule,
+                       train_ds, val_ds, TRAIN_BATCH, log_dir, seed=0,
+                       log_step_gap=1, device=dev)
+
+    # -- [train]: Trainer.train over TRAIN_EPOCHS epochs, each step timed ---
+    trainers = {}
+    runs = (("bf16 encoder", enc_dtype, False), ("f32", None, False),
+            ("f32, cuDNN TF32 on (torch's default)", None, True))
+    fs.launches = 0
+    for i, (label, encoder_dtype, tf32) in enumerate(runs):
+        torch.backends.cudnn.allow_tf32 = tf32
+        b = bundle(encoder_dtype)
+        trainer = trainer_of(b, os.path.join(tmp.name, f"run{i}"))
+        step_ms, inner = [], trainer._train_step
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        trainer._train_step = timed
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer.train(TRAIN_EPOCHS)
+        wall = time.perf_counter() - t0
+        trainer._train_step = inner
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        records = trainer.logger.read_all()
+        steps = [r for r in records if "train/loss" in r]
+        vals = [r["val/loss"] for r in records if "val/loss" in r]
+        med = float(np.median(step_ms[1:]))
+        log(f"[train] beat-ours {label}, batch {TRAIN_BATCH}, {len(steps)} steps in "
+            f"{TRAIN_EPOCHS} epochs ({wall:.1f} s with validation and checkpoints): "
+            f"step {med:.2f} ms median after the first (first {step_ms[0]:.1f} ms, "
+            f"min {min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}), "
+            f"{TRAIN_BATCH * 1e3 / med:.1f} windows/s, peak "
+            f"{peak_mb:.0f} MB allocated; TF32 matmul "
+            f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {tf32} [{smi}]")
+        log(f"[train]   loss by step: "
+            + " ".join(f"{r['train/loss']:.4f}" for r in steps))
+        log(f"[train]   grad_norm by step: "
+            + " ".join(f"{r['train/grad_norm']:.3f}" for r in steps))
+        log(f"[train]   lr at steps 0, 1, 2: "
+            + " ".join(f"{r['train/lr']:.4e}" for r in steps[:3])
+            + f"; val loss by epoch: " + " ".join(f"{v:.4f}" for v in vals))
+        finite = all(np.isfinite([r["train/loss"], r["train/grad_norm"]]).all()
+                     for r in steps) and all(np.isfinite(vals))
+        if len(steps) != TRAIN_EPOCHS * TRAIN_BATCHES or not finite:
+            raise AssertionError(f"training ({label}) took {len(steps)} steps "
+                                 "or gave a non-finite loss or norm")
+        summary[label] = dict(step_ms=med, windows_per_s=TRAIN_BATCH * 1e3 / med,
+                              peak_mb=peak_mb, first_ms=step_ms[0])
+        trainers[label] = trainer
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[train] hand-written kernel launches in training: {fs.launches} "
+        "(the training path is library ops: cuDNN, cuBLAS, AdamW)")
+    if fs.launches:
+        raise AssertionError("training launched the fused sampler")
+
+    # -- [train-vs-cpu]: one step at batch 4, the card against the CPU -----
+    from gesture_diffusion_torch.models import speech_encoder
+
+    cpu_b = build_all(cfg, D_POSE, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v[:4]) for k, v in train_ds.data.items()}
+    g = torch.Generator().manual_seed(5)
+    t = torch.randint(0, cpu_b.schedule.num_timesteps, (4,), generator=g)
+    noise = torch.randn(batch["pose"].shape, generator=g)
+    weights = {k: v.clone() for k, v in cpu_b.model.state_dict().items()}
+
+    def both_steps(dtype):
+        out = {}
+        for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            b = bundle(None) if name == "card" else cpu_b
+            b.model.load_state_dict(weights)
+            b.model.to(dtype)
+            step = make_train_step(b.model, b.schedule.to(d), b.make_optimizer(),
+                                   b.lr_schedule)
+            t0 = time.perf_counter()
+            m = step({"wav": batch["wav"].to(d), "pose": batch["pose"].to(d, dtype)},
+                     0, t=t.to(d), noise=noise.to(d, dtype))
+            grads = {k: p.grad.detach().cpu() for k, p in b.model.named_parameters()}
+            stats = {k: v.detach().cpu() for k, v in b.model.state_dict().items()
+                     if "running_" in k}
+            out[name] = ({k: float(v) for k, v in m.items()}, grads, stats,
+                         time.perf_counter() - t0)
+        (mc, gc, sc, cpu_s), (mg, gg, sg, _) = out["cpu"], out["card"]
+        top = max(float(v.abs().max()) for v in gc.values())
+        # max|d| over the tensor's max|g|, floored at 1e-2 of the largest:
+        # the key projections' dconv biases have a gradient of 0 in exact
+        # arithmetic (the softmax removes a constant shift), float noise here
+        ratio = {k: float((gg[k] - v).abs().max()) / max(float(v.abs().max()),
+                                                        1e-2 * top)
+                 for k, v in gc.items()}
+        return dict(
+            loss=abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+            norm=abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"],
+            outside=max((r, k) for k, r in ratio.items() if not k.startswith(TRUNK)),
+            trunk=max((r, k) for k, r in ratio.items() if k.startswith(TRUNK)),
+            bn=max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max()) for k in sc),
+            cpu_s=cpu_s)
+
+    f32 = both_steps(torch.float32)
+    # float64 on both sides with one mel (the CPU's): the mel front-end is
+    # float32 FFTs (cuFFT on the card), and the trunk's train-mode gradient
+    # amplifies that input difference
+    mel = speech_encoder.speech_frontend(batch["wav"])
+    frontend = speech_encoder.speech_frontend
+    speech_encoder.speech_frontend = lambda wav: mel.to(wav.device)
+    try:
+        f64 = both_steps(torch.float64)
+    finally:
+        speech_encoder.speech_frontend = frontend
+    worst64 = max(f64["outside"], f64["trunk"])
+    log(f"[train-vs-cpu] one step, batch 4, full width, TF32 off, card against "
+        f"CPU. float32: loss rel {f32['loss']:.2e}, grad_norm rel {f32['norm']:.2e}, "
+        f"BN running statistics max|d|/max|ref| {f32['bn']:.2e}, worst gradient "
+        f"max|d|/max|g| outside the SE-ResNet trunk {f32['outside'][0]:.2e} "
+        f"({f32['outside'][1]}), in the trunk {f32['trunk'][0]:.2e} "
+        f"({f32['trunk'][1]}); float64 with one mel: loss rel {f64['loss']:.2e}, "
+        f"worst gradient {worst64[0]:.2e} ({worst64[1]}); the CPU step took "
+        f"{f32['cpu_s']:.1f} s (f32) [{smi}]")
+    if (f32["loss"] > TRAIN_LOSS_BAR or f32["bn"] > TRAIN_LOSS_BAR
+            or f32["norm"] > TRAIN_NORM_BAR or f32["outside"][0] > TRAIN_GRAD_BAR
+            or worst64[0] > TRAIN_GRAD_BAR):
+        raise AssertionError("the card's train step is off the CPU's")
+    summary["vs_cpu"] = dict(loss=f32["loss"], grad_norm=f32["norm"],
+                             outside=f32["outside"][0], trunk=f32["trunk"][0],
+                             bn=f32["bn"], worst_f64=worst64[0])
+
+    # -- [train-resume]: a fresh Trainer from the checkpoint takes the same
+    # next step as the run that wrote it ----------------------------------
+    first = trainers["bf16 encoder"]
+    resumed = trainer_of(bundle(enc_dtype), first.log_dir)
+    if (resumed.train_step_count, resumed.epochs_run) != (
+            first.train_step_count, first.epochs_run):
+        raise AssertionError("the resumed Trainer is not where the run stopped")
+    nxt = next(iter_batches(train_ds, TRAIN_BATCH,
+                            rng=RngStream(0).numpy("shuffle", first.epochs_run)))
+    before = {k: v.clone() for k, v in first.model.state_dict().items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        ma = first.train_steps([nxt])[0]
+        mb = resumed.train_steps([nxt])[0]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    sa, sb = first.model.state_dict(), resumed.model.state_dict()
+    moved = max(float((p.detach() - before[k]).abs().max())
+                for k, p in first.model.named_parameters())
+    param_d = max(float((sa[k].float() - sb[k].float()).abs().max()) for k in sa)
+    same = float(ma["loss"]) == float(mb["loss"]) and \
+        float(ma["grad_norm"]) == float(mb["grad_norm"])
+    log(f"[train-resume] step {first.train_step_count - 1} after a resume from "
+        f"epoch {first.epochs_run - 1}'s checkpoint (cuDNN deterministic): loss "
+        f"{float(mb['loss']):.6f} vs {float(ma['loss']):.6f}, grad_norm "
+        f"{float(mb['grad_norm']):.4f} vs {float(ma['grad_norm']):.4f}, equal: "
+        f"{same}; max|param diff| {param_d:.3e} against the step's largest "
+        f"update {moved:.3e}")
+    if not same or param_d > 0.0:
+        raise AssertionError("the resumed run's next step differs")
+    summary["resume_equal"] = same
+
+    # -- [train-to-serve]: trained weights through the fused kernel --------
+    s50, t50 = make_diffusion("linear", 1000, "ddim50")
+    serve = Generator(bundle(None).model, s50, t50, use_fused=True, device=dev)
+    serve.update_variables(first.best_params)
+    wav = torch.from_numpy(seeded_audio(80, 1, WINDOW / FPS)).to(dev)
+    z = torch.randn((1, WINDOW, D_POSE), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    fs.launches = 0
+    sample = serve.generate_sample(wav, D_POSE, WINDOW, noise=z)
+    torch.cuda.synchronize()
+    launched = fs.launches
+    with torch.no_grad():
+        plain = fs.fused_ddim_sample_plain(**serve.fused_args(wav, D_POSE, WINDOW, z))
+    r = rel(sample, plain[..., :D_POSE])
+    log(f"[train-to-serve] best_params -> Generator.update_variables -> "
+        f"generate_sample, ddim50, batch 1: path {serve.last_sample_path}, "
+        f"kernel launches +{launched}, kernel vs plain max|d|/max|ref| "
+        f"{r:.3e} (bar {KERNEL_BAR:.0e}), output {tuple(sample.shape)} "
+        f"finite {bool(torch.isfinite(sample).all())}")
+    if (launched != 1 or serve.last_sample_path != "fused" or r > KERNEL_BAR
+            or not torch.isfinite(sample).all()):
+        raise AssertionError("the trained weights do not serve through the kernel")
+    summary["serve_rel"] = r
+    tmp.cleanup()
+    return summary
 
 
 def main() -> int:
@@ -515,6 +765,11 @@ def main() -> int:
     for variant, count in launches.items():
         if count == 0:
             raise AssertionError(f"the main path launched no {variant} kernel")
+
+    # -- phase 6: training -----------------------------------------------------
+    t0 = time.perf_counter()
+    train_paths(dev, smi)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
 
     what = {
         "ddim": ("fused_ddim_sample", f"{TPU_KERNEL}:705",

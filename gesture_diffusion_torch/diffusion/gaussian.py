@@ -2,8 +2,7 @@
 process q, the posterior, the model's reverse step p and the eps <-> x0
 conversions.
 
-Port of ``gesture_diffusion_tpu/diffusion/gaussian.py`` (without
-``training_losses``, which comes with training): every table is computed
+Port of ``gesture_diffusion_tpu/diffusion/gaussian.py``: every table is computed
 on the host in float64 and stored as float32 tensors (CPU by default;
 ``Schedule.to`` moves it).  Model evaluation is ``model_fn(x_t, t) ->
 eps``, so the caller closes over the conditioning memory.  Layout is
@@ -156,3 +155,22 @@ def p_mean_variance(sched: Schedule, model_fn: ModelFn, x: torch.Tensor,
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def training_losses(sched: Schedule, model_fn: ModelFn, x_start: torch.Tensor,
+                    t: torch.Tensor, noise: torch.Tensor) -> dict:
+    """Epsilon-MSE diffusion loss plus the tensors the auxiliary losses
+    read: per-example ``mse`` (N,), ``eps``, ``x_t``, ``pred_x_start`` and
+    the posterior ``model_mean``."""
+    x_t = q_sample(sched, x_start, t, noise)
+    eps = model_fn(x_t, t)
+    mse = mean_flat((eps - noise) ** 2)
+    pred_x_start = predict_xstart_from_eps(sched, x_t, t, eps)
+    model_mean, _, _ = q_posterior_mean_variance(sched, pred_x_start, x_t, t)
+    return {
+        "mse": mse,
+        "eps": eps,
+        "x_t": x_t,
+        "pred_x_start": pred_x_start,
+        "model_mean": model_mean,
+    }

@@ -172,7 +172,7 @@ class Generator:
     def _memory_rows(self, wavs: torch.Tensor) -> torch.Tensor:
         """(N, 1 + m_s, D) f32: a zero token slot, then
         emb_mem(speech) + pe[1:]."""
-        speech = self.model.encode_memory(wavs)
+        speech = self.model.encode_memory(wavs).float()
         emm = self.model.pose_decoder.emb_mem
         m_s = speech.shape[1]
         rows = speech @ emm.weight.t() + emm.bias + self._pe[1:m_s + 1]

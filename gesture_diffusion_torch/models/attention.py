@@ -1,9 +1,12 @@
 """Primer-EZ transformer primitives, batch-first (N, T, C).
 
-Port of ``gesture_diffusion_tpu/models/attention.py`` (forward only): the
-squared-ReLU feed-forward, the kernel-3 depthwise temporal conv on Q/K/V
-whose taps are shared across heads, and the sinusoidal positional
-encoding.  Module and parameter names follow the reference checkpoint
+Port of ``gesture_diffusion_tpu/models/attention.py``: the squared-ReLU
+feed-forward, the kernel-3 depthwise temporal conv on Q/K/V whose taps are
+shared across heads (with the JAX package's custom gradient, as an
+``autograd.Function``), and the sinusoidal positional encoding.  Dropout
+sits where the JAX modules have it (after the positional encoding, on the
+attention probabilities, on the FF hidden layer) and is the identity in
+``eval()``.  Module and parameter names follow the reference checkpoint
 (``query.0.linear``, ``query.1.conv``, ``feed_forward.layer1``, ...).
 """
 
@@ -34,23 +37,57 @@ def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, dropout: float = 0.0, max_len: int = 5000):
         super().__init__()
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_position_encoding(max_len, d_model)),
             persistent=False)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pe[: x.shape[1]].to(x.dtype)
+        return self.dropout(x + self.pe[: x.shape[1]].to(x.dtype))
+
+
+def _shift_prev(x: torch.Tensor) -> torch.Tensor:
+    """x[t-1] along axis 1, zero at t = 0."""
+    return F.pad(x[:, :-1], (0, 0, 0, 0, 1, 0))
+
+
+def _shift_next(x: torch.Tensor) -> torch.Tensor:
+    """x[t+1] along axis 1, zero at the last t."""
+    return F.pad(x[:, 1:], (0, 0, 0, 0, 0, 1))
+
+
+class _DepthwiseConv3(torch.autograd.Function):
+    """Saves only x and w; the shifted copies are recomputed in backward,
+    as the JAX package's ``_dwc3_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return _shift_prev(x) * w[0] + x * w[1] + _shift_next(x) * w[2] + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            # dL/dx[t] = g[t+1]*w0 + g[t]*w1 + g[t-1]*w2
+            dx = _shift_next(g) * w[0] + g * w[1] + _shift_prev(g) * w[2]
+        if ctx.needs_input_grad[1]:
+            dw = torch.stack([(g * _shift_prev(x)).sum((0, 1, 2)),
+                              (g * x).sum((0, 1, 2)),
+                              (g * _shift_next(x)).sum((0, 1, 2))]).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 1, 2))
+        return dx, dw, db
 
 
 def depthwise_conv3(x: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """y[t] = w0*x[t-1] + w1*x[t] + w2*x[t+1] + b over axis 1 of
     (N, T, H, Dk); w (3, Dk) shared across heads, b (Dk,)."""
-    prev = F.pad(x[:, :-1], (0, 0, 0, 0, 1, 0))
-    nxt = F.pad(x[:, 1:], (0, 0, 0, 0, 0, 1))
-    return prev * w[0] + x * w[1] + nxt * w[2] + b
+    return _DepthwiseConv3.apply(x, w, b)
 
 
 class PrepareForMultiHeadAttention(nn.Module):
@@ -79,9 +116,10 @@ class SpatialDepthWiseConv(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Softmax attention with the Primer depthwise conv on Q/K/V; scores
-    in fp32, masked entries at finfo(float32).min."""
+    in fp32, masked entries at finfo(float32).min, dropout on the
+    probabilities."""
 
-    def __init__(self, heads: int, d_model: int):
+    def __init__(self, heads: int, d_model: int, dropout: float = 0.0):
         super().__init__()
         assert d_model % heads == 0
         self.heads = heads
@@ -94,6 +132,7 @@ class MultiHeadAttention(nn.Module):
 
         self.query, self.key, self.value = proj(), proj(), proj()
         self.output = nn.Linear(d_model, d_model)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, query, key, value, mask=None) -> torch.Tensor:
         q, k, v = self.query(query), self.key(key), self.value(value)
@@ -101,18 +140,19 @@ class MultiHeadAttention(nn.Module):
         scores = torch.einsum("nihd,njhd->nijh", q.float(), k.float()) * scale
         if mask is not None:
             scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
-        attn = torch.softmax(scores, dim=2)
+        attn = self.dropout(torch.softmax(scores, dim=2))
         out = torch.einsum("nijh,njhd->nihd", attn.to(v.dtype), v)
         return self.output(out.reshape(*out.shape[:-2], -1))
 
 
 class FeedForward(nn.Module):
-    """d -> 4d -> d with squared ReLU."""
+    """d -> 4d -> d with squared ReLU, dropout on the hidden layer."""
 
-    def __init__(self, d_model: int, expansion: int = 4):
+    def __init__(self, d_model: int, expansion: int = 4, dropout: float = 0.0):
         super().__init__()
         self.layer1 = nn.Linear(d_model, expansion * d_model)
         self.layer2 = nn.Linear(expansion * d_model, d_model)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer2(squared_relu(self.layer1(x)))
+        return self.layer2(self.dropout(squared_relu(self.layer1(x))))

@@ -17,6 +17,12 @@ Model types: "default" memory = [t-token ; low ; mid ; high] along time;
 them on channels and blends them with ``blend_layer``; "inpaint" is
 "default" plus x += MLP([seed_pose * mask ; mask]), an MLP that starts at
 zero (GLIDE-style).  Layout (N, T, C).
+
+Train mode (``model.train()``) turns on dropout (step encoder, inpaint
+MLP, speech streams, decoder) and the batch statistics of the encoder's
+BatchNorms.  ``encoder_dtype="bfloat16"`` runs the SE-ResNet trunk in bf16
+and everything after it in f32: the blend layer and the decoder take the
+speech memory promoted to f32.
 """
 
 from __future__ import annotations
@@ -56,14 +62,16 @@ def timestep_embedding(t: torch.Tensor, dim: int,
 
 
 class DiffusionStepEncoder(nn.Module):
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.proj = nn.Sequential(nn.Linear(d_model, d_model), nn.SiLU(),
                                   nn.Linear(d_model, d_model))
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return self.proj(timestep_embedding(t, self.d_model))
+        emb = timestep_embedding(t, self.d_model).to(self.proj[0].weight.dtype)
+        return self.dropout(self.proj(emb))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +84,7 @@ class DenoiserConfig:
     model_type: str = "s2g_v2"            # default | s2g_v2 | inpaint
     decoder_type: str = "oneway_cross_attention"
     pose_seed_len: int = 10               # inpaint only
+    encoder_dtype: Optional[str] = None   # "bfloat16": the conv trunk only
 
 
 class GestureDenoiser(nn.Module):
@@ -86,11 +95,15 @@ class GestureDenoiser(nn.Module):
         if cfg.model_type not in MODEL_TYPES:
             raise ValueError(f"Unsupported model_type {cfg.model_type}")
         self.cfg = cfg
-        self.speech_encoder = HA2GSpeechEncoder(cfg.d_model)
-        self.diffusion_step_encoder = DiffusionStepEncoder(cfg.d_model)
+        self.speech_encoder = HA2GSpeechEncoder(
+            cfg.d_model, cfg.dropout,
+            getattr(torch, cfg.encoder_dtype) if cfg.encoder_dtype else None)
+        self.diffusion_step_encoder = DiffusionStepEncoder(cfg.d_model,
+                                                           cfg.dropout)
         self.pose_decoder = OnewayCrossAttention(
             d_x=cfg.d_pose, d_memory=cfg.d_model, d_model=cfg.d_model,
-            heads=cfg.heads, n_layers=cfg.n_layers, d_out=cfg.d_pose)
+            heads=cfg.heads, n_layers=cfg.n_layers, d_out=cfg.d_pose,
+            dropout=cfg.dropout)
         if cfg.model_type == "s2g_v2":
             self.blend_layer = nn.Linear(3 * cfg.d_model, cfg.d_model)
         if cfg.model_type == "inpaint":
@@ -110,7 +123,8 @@ class GestureDenoiser(nn.Module):
             longest = max(s.shape[1] for s in (low, mid, high))
             streams = [F.pad(s, (0, 0, longest - s.shape[1], 0))
                        for s in (low, mid, high)]
-            return self.blend_layer(torch.cat(streams, dim=-1))
+            return self.blend_layer(
+                torch.cat(streams, dim=-1).to(self.blend_layer.weight.dtype))
         return torch.cat([low, mid, high], dim=1)
 
     def inpaint_projection(self, inpaint_pose: torch.Tensor,

@@ -11,6 +11,12 @@ Port of ``gesture_diffusion_tpu/models/speech_encoder.py``:
 
 The mel image is (N, 1, freq, time).  Module names follow the reference
 checkpoint (``wav_encoder.feat_extractor.layer{k}.{b}.conv1``, ...).
+
+Training follows flax, not torch's stock BatchNorm: see ``BatchNorm2d``.
+With ``encoder_dtype="bfloat16"`` the trunk and the projection run under
+``torch.autocast`` in bf16 (f32 parameters, BN statistics in f32), as flax
+``dtype=bfloat16`` computes them; the mel front-end stays in f32 and the
+three streams come out in bf16.
 """
 
 from __future__ import annotations
@@ -26,9 +32,33 @@ from ..ops.audio import speech_frontend
 BN_EPS = 1e-5
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    # flax momentum 0.9 (weight of the old value) == torch momentum 0.1
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose train mode is flax's ``nn.BatchNorm(momentum=0.9)``.
+
+    Both normalise by the batch's biased variance.  They differ in the
+    running statistics: torch moves ``running_var`` towards the unbiased
+    variance (n/(n-1) times larger), flax towards the biased one.  So the
+    statistics are computed here, in f32 whatever the input dtype, and the
+    running averages moved by hand: new = 0.9 old + 0.1 batch (torch's
+    momentum 0.1 is flax's 0.9).  Eval mode is torch's own."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(
+                x.to(torch.promote_types(x.dtype, torch.float32)),
+                dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                             self.eps)
 
 
 class SELayer(nn.Module):
@@ -50,15 +80,15 @@ class SEBasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.se = SELayer(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-                _bn(planes))
+                BatchNorm2d(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn1(F.relu(self.conv1(x)))
@@ -80,7 +110,7 @@ class SEResNetEncoder(nn.Module):
                  n_out: int = 32, n_mels: int = 128):
         super().__init__()
         self.conv1 = nn.Conv2d(1, filters[0], 3, padding=1)
-        self.bn1 = _bn(filters[0])
+        self.bn1 = BatchNorm2d(filters[0])
         inplanes = filters[0]
         for k, (planes, blocks) in enumerate(zip(filters, layers), start=1):
             stride = 1 if k == 1 else 2
@@ -99,7 +129,7 @@ class SEResNetEncoder(nn.Module):
         self._shuffle = {}
         for tag, ch, kern, r, h in heads:
             setattr(self, f"conv_{tag}", nn.Conv2d(ch, ch, kern))
-            setattr(self, f"bn_{tag}", _bn(ch))
+            setattr(self, f"bn_{tag}", BatchNorm2d(ch))
             setattr(self, f"fc_{tag}", nn.Linear(ch * (h - kern + 1), n_out))
             self._shuffle[tag] = r
 
@@ -134,15 +164,21 @@ class _WavEncoder(nn.Module):
 
 
 class HA2GSpeechEncoder(nn.Module):
-    """Waveform -> three (N, T_i, d_model) feature streams."""
+    """Waveform -> three (N, T_i, d_model) feature streams, with dropout
+    before the shared projection."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout: float = 0.0,
+                 encoder_dtype: "torch.dtype | None" = None):
         super().__init__()
         self.wav_encoder = _WavEncoder()
         self.wav_proj_layer = nn.Linear(32, d_model)
+        self.dropout = nn.Dropout(dropout)
+        self.encoder_dtype = encoder_dtype
 
     def forward(self, wav: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        low, mid, high = self.wav_encoder.feat_extractor(speech_frontend(wav))
-        proj = self.wav_proj_layer
-        return proj(low), proj(mid), proj(high)
+        mel = speech_frontend(wav).to(self.wav_proj_layer.weight.dtype)
+        with torch.autocast(wav.device.type, dtype=self.encoder_dtype,
+                            enabled=self.encoder_dtype is not None):
+            streams = self.wav_encoder.feat_extractor(mel)
+            return tuple(self.wav_proj_layer(self.dropout(s)) for s in streams)

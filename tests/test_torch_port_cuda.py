@@ -256,3 +256,94 @@ def test_kernel_refuses_what_it_cannot_take(card):
                              fs.ddim_coefficients(sched).cuda(), None, None,
                              N_LAYERS, 8, sched.num_timesteps,
                              compute_dtype=torch.float32)
+
+
+def _train_case(model_type, dtype):
+    """A small model, its batch, t and noise, all drawn on the CPU."""
+    from gesture_diffusion_torch.models.factory import make_adamw
+
+    g = torch.Generator().manual_seed(3)
+    cfg = DenoiserConfig(d_pose=D_POSE, d_model=64, heads=4, n_layers=1,
+                         model_type=model_type, pose_seed_len=3)
+    model = init_random_(GestureDenoiser(cfg), torch.Generator().manual_seed(1))
+    batch = {"wav": 0.3 * torch.randn(4, 8000, generator=g),
+             "pose": 0.5 * torch.randn(4, T, D_POSE, generator=g, dtype=dtype)}
+    t = torch.randint(0, 100, (4,), generator=g)
+    noise = torch.randn(4, T, D_POSE, generator=g, dtype=dtype)
+    return model.to(dtype), batch, t, noise, make_adamw
+
+
+TRUNK = "speech_encoder.wav_encoder.feat_extractor."
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["s2g_v2", "inpaint"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_train_step_on_card_matches_cpu(card, monkeypatch, model_type, dtype):
+    """One train step on the card against the same step on the CPU (TF32
+    off, set by the fixture), both reading the CPU's mel (the front-end's
+    float32 FFTs differ between cuFFT and the CPU, and the trunk's
+    train-mode gradient amplifies an input difference).  The loss, the norm
+    and the BN statistics to 1e-4; every gradient to 1e-3 of its tensor's
+    max|g| (floored at 1e-2 of the largest: the key projections' dconv
+    biases have a gradient of 0 in exact arithmetic), in float32 outside
+    the SE-ResNet trunk only: its float32 train-mode gradients are
+    ill-conditioned on random weights."""
+    import copy
+
+    from gesture_diffusion_torch.models import speech_encoder
+    from gesture_diffusion_torch.training import make_train_step
+
+    model, batch, t, noise, make_adamw = _train_case(model_type, dtype)
+    mel = speech_encoder.speech_frontend(batch["wav"])
+    monkeypatch.setattr(speech_encoder, "speech_frontend",
+                        lambda wav: mel.to(wav.device))
+    sched, _ = make_diffusion("linear", 100, "")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        step = make_train_step(m, sched.to(dev), make_adamw(m.parameters(), 1e-3, 0.1),
+                               lambda s: 1e-3, grad_norm_clip_value=1.0)
+        metrics = step({k: v.to(dev) for k, v in batch.items()}, 0, t=t.to(dev),
+                       noise=noise.to(dev))
+        out[dev] = (metrics, {k: p.grad.cpu() for k, p in m.named_parameters()},
+                    {k: v.cpu() for k, v in m.state_dict().items()})
+    (mc, gc, sc), (mg, gg, sg) = out["cpu"], out["cuda"]
+    for k in ("loss", "denoise", "grad_norm"):
+        assert float(mg[k]) == pytest.approx(float(mc[k]), rel=1e-4), k
+    for k, v in sc.items():
+        if "running_" in k:
+            assert _rel(sg[k], v) < 1e-4, k
+    top = max(float(v.abs().max()) for v in gc.values())
+    worst = {k: float((gg[k] - v).abs().max()) / max(float(v.abs().max()), 1e-2 * top)
+             for k, v in gc.items()}
+    held = {k: r for k, r in worst.items()
+            if dtype == torch.float64 or not k.startswith(TRUNK)}
+    print(model_type, dtype, "worst held", max(held.items(), key=lambda kv: kv[1]),
+          "worst of all", max(worst.values()))
+    for k, r in held.items():
+        assert r < 1e-3, (k, r)
+
+
+@pytest.mark.cuda
+def test_train_step_dropout_on_card_follows_seed_and_step(card):
+    """At p > 0 the card's dropout masks are a function of (seed, step),
+    and the step leaves the global CUDA generator as it found it."""
+    import copy
+
+    from gesture_diffusion_torch.training import make_train_step
+
+    model, batch, t, noise, make_adamw = _train_case("s2g_v2", torch.float32)
+    dropped = GestureDenoiser(DenoiserConfig(**{**model.cfg.__dict__, "dropout": 0.2}))
+    dropped.load_state_dict(model.state_dict())
+    sched, _ = make_diffusion("linear", 100, "")
+    batch = {k: v.cuda() for k, v in batch.items()}
+    state = torch.cuda.get_rng_state()
+    losses = []
+    for step_no in (4, 4, 5):
+        m = copy.deepcopy(dropped).cuda()
+        step = make_train_step(m, sched.to("cuda"), make_adamw(m.parameters(), 0.0, 0.0),
+                               lambda s: 0.0, seed=1)
+        losses.append(float(step(batch, step_no, t=t.cuda(), noise=noise.cuda())["loss"]))
+    assert losses[0] == losses[1] != losses[2]
+    assert torch.equal(torch.cuda.get_rng_state(), state)

@@ -71,6 +71,28 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert gen.device.type == "cpu" and gen.use_fused
 
 
+def test_trainer_refuses_cpu_fallback(monkeypatch, tmp_path):
+    """The Trainer runs on the card unless the caller asks for the CPU."""
+    import numpy as np
+
+    from gesture_diffusion_torch.diffusion import make_diffusion
+    from gesture_diffusion_torch.models import DenoiserConfig, GestureDenoiser
+    from gesture_diffusion_torch.models.factory import make_adamw
+    from gesture_diffusion_torch.training import ArrayDataset, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = GestureDenoiser(DenoiserConfig(d_pose=12, d_model=32, heads=4, n_layers=1))
+    sched, _ = make_diffusion("linear", 50, "")
+    data = ArrayDataset({"wav": np.zeros((4, 8000), np.float32),
+                         "pose": np.zeros((4, 10, 12), np.float32)})
+    args = (model, sched, make_adamw(model.parameters(), 1e-3, 0.0), lambda s: 1e-3,
+            data, data, 2, str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(*args)
+    assert not (tmp_path / "chkpts").exists()
+    assert Trainer(*args, device="cpu").device.type == "cpu"
+
+
 def test_build_model_rejects_unported_decoders():
     from gesture_diffusion_torch.models import build_model
     from gesture_diffusion_torch.utils import JsonConfig

@@ -45,18 +45,21 @@ def _perturb(tree, rng):
 
 
 def jax_variables(model_type: str = "s2g_v2", n_layers: int = 1,
-                  wav: "np.ndarray | None" = None, seed: int = 0):
-    """(JAX config, numpy variables) of a small denoiser."""
-    cfg = JaxConfig(d_pose=D_POSE, d_model=DM, heads=HEADS, n_layers=n_layers,
-                    model_type=model_type)
+                  wav: "np.ndarray | None" = None, seed: int = 0,
+                  d_model: int = DM, heads: int = HEADS, t: int = T, **cfg_kw):
+    """(JAX config, numpy variables) of a small denoiser; ``cfg_kw`` goes
+    to the JAX ``DenoiserConfig`` (e.g. ``pose_seed_len``,
+    ``encoder_dtype``)."""
+    cfg = JaxConfig(d_pose=D_POSE, d_model=d_model, heads=heads,
+                    n_layers=n_layers, model_type=model_type, **cfg_kw)
     wav = seeded_wav(seed) if wav is None else wav
     n = wav.shape[0]
     extra = {}
     if model_type == "inpaint":
-        extra = dict(inpaint_pose=jnp.zeros((n, T, D_POSE)),
-                     inpaint_mask=jnp.zeros((n, T, 1)))
+        extra = dict(inpaint_pose=jnp.zeros((n, t, D_POSE)),
+                     inpaint_mask=jnp.zeros((n, t, 1)))
     variables = JaxDenoiser(cfg).init(
-        jax.random.key(seed), jnp.zeros((n, T, D_POSE)),
+        jax.random.key(seed), jnp.zeros((n, t, D_POSE)),
         jnp.zeros((n,), jnp.int32), jnp.asarray(wav), train=False, **extra)
     variables = jax.tree.map(np.asarray, variables)
     rng = np.random.default_rng(seed + 100)
@@ -83,7 +86,9 @@ def port_model(cfg, variables) -> GestureDenoiser:
     """The port's denoiser on the same weights (strict load)."""
     model = GestureDenoiser(DenoiserConfig(
         d_pose=cfg.d_pose, d_model=cfg.d_model, heads=cfg.heads,
-        n_layers=cfg.n_layers, model_type=cfg.model_type))
+        n_layers=cfg.n_layers, model_type=cfg.model_type,
+        dropout=cfg.dropout, pose_seed_len=cfg.pose_seed_len,
+        encoder_dtype=cfg.encoder_dtype))
     model.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
     return model.eval()
 

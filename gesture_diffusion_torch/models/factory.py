@@ -1,22 +1,21 @@
-"""Config-driven construction of the model, its diffusion schedules and
-its optimizer.
+"""Config-driven construction of the model and its diffusion schedules.
 
 Port of ``gesture_diffusion_tpu/models/factory.py`` over the flat config
 schema of ``configs/beat-ours.json``, for the oneway decoder (the only one
 ported so far).  ``build_model`` places the model on the card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``.  The optimizer and its learning-rate
+schedule are built in ``training`` (``make_optimizer``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 
 from ..diffusion import Schedule, make_diffusion
-from ..training.lr_schedule import build_lr_schedule
 from ..utils.device import resolve_device
 from .denoiser import DenoiserConfig, GestureDenoiser
 
@@ -82,40 +81,18 @@ def build_model(d_pose: int, model_params, device=None,
     return model.to(dev).eval()
 
 
-def make_adamw(params, lr: float, weight_decay: float) -> torch.optim.AdamW:
-    """``optax.adamw``'s settings spelled out, since torch's defaults differ
-    (its weight_decay is 0.01): b1 0.9, b2 0.999, eps 1e-8 added to
-    sqrt(v_hat), decoupled decay scaled by the learning rate, on every
-    parameter.  ``fused``: one multi-tensor kernel per step; the default
-    per-list path spends about 10 ms of host time a step on this model's
-    360 tensors (torch.profiler on an H100, PERF.md)."""
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay, amsgrad=False,
-                             fused=True)
-
-
 class ModelBundle(NamedTuple):
     model: GestureDenoiser
     schedule: Schedule           # training schedule (full steps)
     timestep_map: torch.Tensor
     eval_schedule: Schedule      # respaced for sampling/eval
     eval_timestep_map: torch.Tensor
-    lr_schedule: Callable[[int], float]
-    weight_decay: float
-
-    def make_optimizer(self) -> torch.optim.AdamW:
-        """AdamW over the model's parameters; the trainer sets its learning
-        rate from ``lr_schedule`` at every step."""
-        return make_adamw(self.model.parameters(), self.lr_schedule(0),
-                          self.weight_decay)
 
 
 def build_all(config, d_pose: int, device=None,
               generator: Optional[torch.Generator] = None,
               encoder_dtype: Optional[str] = None) -> ModelBundle:
-    """The model, its diffusion schedules, and the learning-rate schedule
-    and weight decay of ``Train`` (lr 1e-2 and no decay where the config
-    has no ``Train`` block, as in the JAX package)."""
+    """The model and its diffusion schedules (training and respaced)."""
     model_params = config.Model
     model = build_model(d_pose, model_params, device=device,
                         generator=generator, encoder_dtype=encoder_dtype)
@@ -131,8 +108,4 @@ def build_all(config, d_pose: int, device=None,
     eval_sched, eval_tmap = make_diffusion(
         dp.noise_schedule, dp.diffusion_steps, dp.get("timestep_respacing"),
         is_training=False)
-    train_params = config.get("Train") or {}
-    lr_schedule = build_lr_schedule(train_params.get("Scheduler"),
-                                    train_params.get("lr", 1e-2))
-    return ModelBundle(model, sched, tmap, eval_sched, eval_tmap, lr_schedule,
-                       float(train_params.get("weight_decay") or 0.0))
+    return ModelBundle(model, sched, tmap, eval_sched, eval_tmap)

@@ -11,13 +11,12 @@ one device:
     sets the learning rate to ``lr_schedule(step)`` and steps AdamW;
   * the ``Trainer`` keeps the JAX trainer's semantics and artifacts:
     init or resume, ``start_chkpt``, epochs, the validation loss, best
-    params, early stopping, one checkpoint per epoch, the loss-aware
-    ``schedule_sampler`` and ``steps_per_call``.
+    params, early stopping, one checkpoint per epoch and the loss-aware
+    ``schedule_sampler``.
 
-PyTorch runs eagerly, so there is no compiled step: ``steps_per_call=K``
-runs K steps back to back and logs them after the K-th, with the same
-numbers as K single calls.  The step reads nothing back to the host unless
-it logs or feeds the loss-aware sampler.
+PyTorch runs eagerly, so there is no compiled multi-step call (the JAX
+trainer's ``steps_per_call``).  The step reads nothing back to the host
+unless it logs or feeds the loss-aware sampler.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from typing import Callable, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from ..diffusion.gaussian import Schedule
 from ..diffusion.resample import create_named_schedule_sampler
@@ -109,7 +109,10 @@ def make_train_step(
     device tensors ``pose`` (N, T, C) and ``wav`` (N, T_wav); t, noise and
     the dropout masks come from ``RngStream(seed)`` at ``step`` unless t
     and noise are given.  The parameters' ``.grad`` keep the step's
-    (clipped) gradients until the next step."""
+    (clipped) gradients until the next step.  Its three phases are
+    ``torch.profiler`` ranges: ``train_step/forward`` (draws, forward and
+    losses), ``train_step/backward`` and ``train_step/optimizer`` (norm,
+    clipping and AdamW)."""
     rngs = RngStream(seed)
     params = [p for p in model.parameters() if p.requires_grad]
     dropout = any(isinstance(m, nn.Dropout) and m.p > 0
@@ -119,29 +122,32 @@ def make_train_step(
                    with_per_example: bool = False) -> Dict[str, torch.Tensor]:
         poses, wav = batch["pose"], batch["wav"]
         dev = poses.device
-        if t is None:
-            t = torch.randint(0, sched.num_timesteps, (poses.shape[0],),
-                              generator=rngs.torch("train/t", step, dev),
-                              device=dev)
-        if noise is None:
-            noise = torch.randn(poses.shape, dtype=poses.dtype, device=dev,
-                                generator=rngs.torch("train/noise", step, dev))
-        extra = inpaint_kwargs(model, poses)
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        with _dropout_seeded(rngs.seed_of("train/dropout", step), dev, dropout):
-            losses = assemble_losses(
-                sched, lambda x_t, tt: model(x_t, tt, wav, **extra), poses, t,
-                noise, loss_params, weights=weights,
-                with_per_example=with_per_example)
-        losses["loss"].backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        grad_norm = global_norm(grads)
-        clip_gradients(grads, grad_norm, grad_norm_clip_value, grad_clip_value)
-        lr = lr_schedule(step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+        with record_function("train_step/forward"):
+            if t is None:
+                t = torch.randint(0, sched.num_timesteps, (poses.shape[0],),
+                                  generator=rngs.torch("train/t", step, dev),
+                                  device=dev)
+            if noise is None:
+                noise = torch.randn(poses.shape, dtype=poses.dtype, device=dev,
+                                    generator=rngs.torch("train/noise", step, dev))
+            extra = inpaint_kwargs(model, poses)
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with _dropout_seeded(rngs.seed_of("train/dropout", step), dev, dropout):
+                losses = assemble_losses(
+                    sched, lambda x_t, tt: model(x_t, tt, wav, **extra), poses,
+                    t, noise, loss_params, weights=weights,
+                    with_per_example=with_per_example)
+        with record_function("train_step/backward"):
+            losses["loss"].backward()
+        with record_function("train_step/optimizer"):
+            grads = [p.grad for p in params if p.grad is not None]
+            grad_norm = global_norm(grads)
+            clip_gradients(grads, grad_norm, grad_norm_clip_value, grad_clip_value)
+            lr = lr_schedule(step)
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["grad_norm"] = grad_norm
         return metrics
@@ -193,20 +199,19 @@ class Trainer:
         log_step_gap: int = 100,
         config: Optional[dict] = None,
         start_chkpt: Optional[str] = None,
-        steps_per_call: int = 1,
         schedule_sampler: Optional[str] = None,
         device=None,
     ):
-        """:param optimizer: built over ``model.parameters()`` (e.g.
-        ``ModelBundle.make_optimizer()``); its learning rate is set from
-        ``lr_schedule`` before every step.
+        """:param optimizer: built over ``model.parameters()`` (e.g. by
+        ``make_optimizer``); its learning rate is set from ``lr_schedule``
+        before every step.
         :param start_chkpt: fine-tuning: start from another run's best
         weights where names and shapes match (only when this run has no
         checkpoint of its own).
         :param schedule_sampler: ``None``/``"uniform"`` (t drawn on the
         device) or ``"loss-second-moment"`` (t drawn on the host by the
-        RMS of recent per-t losses, one device round trip per step;
-        requires ``steps_per_call=1``).  Its history is not checkpointed.
+        RMS of recent per-t losses, one device round trip per step).  Its
+        history is not checkpointed.
         :param device: the card unless ``"cpu"`` is asked for."""
         if goal not in ("minimize", "maximize"):
             raise ValueError(f"Unsupported goal: {goal}")
@@ -225,15 +230,9 @@ class Trainer:
         self.loss_params = dict(loss_params) if loss_params else None
         self.log_step_gap = log_step_gap
         self.rngs = RngStream(seed)
-        self.steps_per_call = max(1, int(steps_per_call))
 
         self.sampler = None
         if schedule_sampler not in (None, "uniform"):
-            if self.steps_per_call > 1:
-                raise ValueError(
-                    f"schedule_sampler={schedule_sampler!r} requires "
-                    "steps_per_call=1: the loss-aware sampler needs the "
-                    "per-step losses on the host between steps")
             self.sampler = create_named_schedule_sampler(
                 schedule_sampler, sched.num_timesteps)
             self._sampler_rng = self.rngs.numpy("schedule_sampler")
@@ -332,15 +331,9 @@ class Trainer:
         self.logger.log(record, step=step)
 
     def _run_train_epoch(self) -> None:
-        pending = []
         for batch in iter_batches(self.train_dataset, self.batch_size,
                                   rng=self.rngs.numpy("shuffle", self.epochs_run)):
-            pending.append(batch)
-            if len(pending) == self.steps_per_call:
-                self.train_steps(pending)
-                pending = []
-        if pending:
-            self.train_steps(pending)
+            self.train_steps([batch])
 
     def _run_val_epoch(self) -> float:
         gen = self.rngs.torch("val", self.epochs_run, self.device)

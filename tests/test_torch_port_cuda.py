@@ -260,7 +260,7 @@ def test_kernel_refuses_what_it_cannot_take(card):
 
 def _train_case(model_type, dtype):
     """A small model, its batch, t and noise, all drawn on the CPU."""
-    from gesture_diffusion_torch.models.factory import make_adamw
+    from gesture_diffusion_torch.training import make_adamw
 
     g = torch.Generator().manual_seed(3)
     cfg = DenoiserConfig(d_pose=D_POSE, d_model=64, heads=4, n_layers=1,

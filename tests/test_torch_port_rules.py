@@ -77,7 +77,7 @@ def test_trainer_refuses_cpu_fallback(monkeypatch, tmp_path):
 
     from gesture_diffusion_torch.diffusion import make_diffusion
     from gesture_diffusion_torch.models import DenoiserConfig, GestureDenoiser
-    from gesture_diffusion_torch.models.factory import make_adamw
+    from gesture_diffusion_torch.training import make_adamw
     from gesture_diffusion_torch.training import ArrayDataset, Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,6 +1,6 @@
 """The port's ``Trainer`` on the CPU, at the size of tests/test_training.py:
 the loss falls on its synthetic dataset, a resumed run continues exactly,
-early stopping fires, checkpoints fail by name, ``steps_per_call`` and
+early stopping fires, checkpoints fail by name, ``train_steps`` and
 ``start_chkpt`` behave, and the metrics JSONL carries the JAX trainer's
 keys (the JAX trainer is the oracle for those)."""
 
@@ -22,10 +22,9 @@ from gesture_diffusion_tpu.training import ArrayDataset as JaxArrayDataset
 from gesture_diffusion_tpu.training import Trainer as JaxTrainer
 from gesture_diffusion_torch.diffusion import make_schedule
 from gesture_diffusion_torch.models import DenoiserConfig, GestureDenoiser, build_all
-from gesture_diffusion_torch.models.factory import make_adamw
 from gesture_diffusion_torch.training import (
-    ArrayDataset, Trainer, checkpoint_path, load_checkpoint, read_checkpoint,
-    save_checkpoint)
+    ArrayDataset, Trainer, checkpoint_path, iter_batches, load_checkpoint,
+    make_adamw, make_optimizer, read_checkpoint, save_checkpoint)
 from gesture_diffusion_torch.utils import JsonConfig
 
 torch.set_num_threads(1)
@@ -108,21 +107,24 @@ def test_early_stopping(tmp_path):
     assert len(vals) == trainer.epochs_run and min(vals[-2:]) >= min(vals[:-2])
 
 
-def test_steps_per_call_equals_single_steps(tmp_path):
-    """K steps per call give the numbers of K single calls, the short
-    tail included (4 batches of 8 per epoch: 3 + 1)."""
-    single = make_trainer(tmp_path / "one", batch_size=8, log_step_gap=1)
-    single.train(max_epochs=2)
-    multi = make_trainer(tmp_path / "three", batch_size=8, log_step_gap=1,
-                         steps_per_call=3)
-    multi.train(max_epochs=2)
+def test_train_steps_equals_single_steps(tmp_path):
+    """``train_steps`` over a list of batches gives the numbers of one call
+    per batch, and logs every step after the last one."""
+    batches = list(iter_batches(ArrayDataset(synthetic_arrays()), 8, shuffle=False))
+    single = make_trainer(tmp_path / "one", log_step_gap=1)
+    for batch in batches:
+        single.train_steps([batch])
+    multi = make_trainer(tmp_path / "four", log_step_gap=1)
+    out = multi.train_steps(batches)
+    assert len(out) == 4 and multi.train_step_count == single.train_step_count == 4
     a, b = params_of(single), params_of(multi)
     for k in a:
         assert torch.equal(a[k], b[k]), k
     recs = [r for r in multi.logger.read_all() if "train/loss" in r]
-    assert [r["train/step"] for r in recs] == list(range(8))
+    assert [r["train/step"] for r in recs] == list(range(4))
     ref = [r for r in single.logger.read_all() if "train/loss" in r]
     assert [r["train/loss"] for r in recs] == [r["train/loss"] for r in ref]
+    assert [r["train/loss"] for r in recs] == [float(m["loss"]) for m in out]
 
 
 def test_loss_aware_sampler(tmp_path):
@@ -132,9 +134,6 @@ def test_loss_aware_sampler(tmp_path):
     assert trainer.sampler._loss_counts.sum() == 4 * 16
     recs = [r for r in trainer.logger.read_all() if "train/loss" in r]
     assert len(recs) == 4 and all("train/mse_per_example" not in r for r in recs)
-    with pytest.raises(ValueError, match="steps_per_call=1"):
-        make_trainer(tmp_path / "bad", schedule_sampler="loss-second-moment",
-                     steps_per_call=2)
 
 
 def test_corrupt_checkpoint_named_error(tmp_path):
@@ -240,17 +239,16 @@ def test_jsonl_keys_are_the_jax_loggers(tmp_path):
 def test_bundle_builds_the_flagship_optimizer():
     """beat-ours: AdamW at weight_decay 0 (not torch's 0.01) and optax's
     betas and eps, with the noamxf learning rate read at update 0."""
-    b = build_all(JsonConfig(os.path.join(REPO, "configs", "beat-ours.json")), 123,
-                  device="cpu", generator=torch.Generator().manual_seed(0),
+    cfg = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
+    b = build_all(cfg, 123, device="cpu", generator=torch.Generator().manual_seed(0),
                   encoder_dtype="bfloat16")
-    opt = b.make_optimizer()
+    opt, lr_schedule = make_optimizer(b.model, cfg.Train)
     group = opt.param_groups[0]
     assert (group["weight_decay"], group["betas"], group["eps"]) == (0.0, (0.9, 0.999), 1e-8)
-    assert group["lr"] == b.lr_schedule(0) == pytest.approx(256 ** -0.5 * 4000 ** -1.5)
+    assert group["lr"] == lr_schedule(0) == pytest.approx(256 ** -0.5 * 4000 ** -1.5)
     assert sum(p.numel() for g in opt.param_groups for p in g["params"]) == 10_340_087
     assert b.model.cfg.encoder_dtype == "bfloat16"
     assert b.model.speech_encoder.encoder_dtype is torch.bfloat16
     # no Train block: lr 1e-2, no decay, as the JAX build_all
-    bare = build_all(JsonConfig({"Model": {**JsonConfig(os.path.join(
-        REPO, "configs", "beat-ours.json")).Model.to_dict()}}), 12, device="cpu")
-    assert bare.lr_schedule(5) == 1e-2 and bare.weight_decay == 0.0
+    opt, lr_schedule = make_optimizer(b.model, None)
+    assert lr_schedule(5) == 1e-2 and opt.param_groups[0]["weight_decay"] == 0.0

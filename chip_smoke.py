@@ -41,7 +41,15 @@ Phases (any failure raises and the script exits non-zero):
      resumed Trainer's next step against the uninterrupted run's; and the
      trained weights served through the fused kernel
      (``Generator.update_variables``), held against its plain version.  The training path launches no hand-written kernel;
-  7. print the kernels' JSON line and, last, the device line.
+  7. the phase CLI (``gesture_diffusion_torch/cli.py``) in process, on the
+     card: ``configs/beat-ours.json`` at full width with ``Data.synthetic``
+     (41 joints, 16/8/2 samples of 20 s) and a hierarchy template pruned
+     from ``tests/golden/synth_fullbody.bvh``, through prep, data, train
+     (20 steps at batch 64), eval (bpd, samples, beat metrics), eval-time
+     and gen; each phase's wall seconds, the artifacts' shapes and keys,
+     ``path=fused``, and the fused kernel's launches in eval, eval-time
+     and gen (each above 0);
+  8. print the kernels' JSON line and, last, the device line.
 
 Needs CUDA; imports nothing of JAX.
 """
@@ -435,6 +443,154 @@ def train_paths(dev, smi):
     return summary
 
 
+CLI_PHASES = ("prep", "data", "train", "eval", "eval-time", "gen")
+CLI_SECONDS, CLI_SPLITS = 20, {"n_train": 16, "n_val": 8, "n_test": 2}
+CLI_STEPS = 20           # 5 steps an epoch at batch 64: 4 epochs
+BPD_KEYS = ("total_bpd", "prior_bpd", "vb", "x_start_mse", "mse")
+
+
+def cli_paths(smi) -> int:
+    """Phase 7: the port's phase CLI end to end at full width, in process,
+    on the card (no --device): ``configs/beat-ours.json`` with
+    ``Data.synthetic`` (41 joints, 20 s samples) and a hierarchy template
+    pruned from ``tests/golden/synth_fullbody.bvh``.  Returns the fused
+    kernel's launches in eval and gen; raises on any failed check."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    from gesture_diffusion_torch import cli
+    from gesture_diffusion_torch.data.bvh import (ancestor_closure, hierarchy_text,
+                                                  parse_bvh, prune_hierarchy)
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    root = tmp.name
+    with open(os.path.join(REPO, "configs", "beat-ours.json")) as f:
+        raw = json.load(f)
+    data = raw["Data"]
+    data.update({
+        "synthetic": {**CLI_SPLITS, "seconds": CLI_SECONDS,
+                      "n_joints": len(data["joints"])},
+        "sample_duration": float(CLI_SECONDS),
+        "spt_dir_path": os.path.join(root, "spt"),
+        "dst_dir_path": os.path.join(root, "dst"),
+        "hierarchy_path": os.path.join(root, "spt", "hierarchy_upper.txt")})
+    raw["Train"].update({"max_training_steps": str(CLI_STEPS),
+                         "early_stop_threshold_in_step": str(CLI_STEPS)})
+    raw["Meta"] = {"project": "chip-smoke", "log_dir": os.path.join(root, "log"),
+                   "name": "beat-ours"}
+    # the template ensure_hierarchy_template derives from a corpus BVH
+    skel = parse_bvh(os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh"))
+    keep = ancestor_closure(skel, data["joints"] + data["hierarchy_extra_joints"])
+    os.makedirs(data["spt_dir_path"])
+    with open(data["hierarchy_path"], "w") as f:
+        f.write(hierarchy_text(prune_hierarchy(skel, keep)))
+    cfg_path = os.path.join(root, "beat-ours.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    log(f"[cli] beat-ours, d_pose {3 * len(data['joints'])}, Data.synthetic "
+        f"{CLI_SPLITS} x {CLI_SECONDS} s, {CLI_STEPS} train steps at batch "
+        f"{raw['Train']['batch_size']}, hierarchy of {len(keep)} joints")
+
+    seconds, printed, launched = {}, {}, {}
+    for phase in CLI_PHASES:
+        out = io.StringIO()
+        fs.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--phase", phase, "--config", cfg_path, "--seed", "0"])
+        torch.cuda.synchronize()
+        seconds[phase] = time.perf_counter() - t0
+        launched[phase] = fs.launches
+        printed[phase] = out.getvalue()
+        for line in printed[phase].splitlines():
+            if line.startswith("[Info] Epoch") or "path=" in line:
+                log(f"[cli]   {line}")
+        log(f"[cli] --phase {phase}: {seconds[phase]:.2f} s wall, fused kernel "
+            f"launches +{launched[phase]} [{smi}]")
+
+    def load(*parts):
+        with open(os.path.join(root, *parts), "rb") as f:
+            return pickle.load(f)
+
+    # data: the windows, the test sequences and the scaler
+    n_win = {s: CLI_SPLITS[f"n_{s}"] * CLI_SECONDS * FPS // WINDOW
+             for s in ("val", "test")}
+    n_win["train"] = CLI_SPLITS["n_train"] * CLI_SECONDS * FPS // (WINDOW // 2)
+    shapes = {}
+    for split in ("train", "val", "test"):
+        d = load("dst", f"{split}_data.pkl")
+        shapes[split] = (d["pose"].shape, d["wav"].shape)
+        if shapes[split] != ((n_win[split], WINDOW, D_POSE),
+                             (n_win[split], WINDOW * SR // FPS)):
+            raise AssertionError(f"{split}_data.pkl has shapes {shapes[split]}")
+    seqs = load("dst", "test_seqs.pkl")
+    n_test = CLI_SPLITS["n_test"]
+    with np.load(os.path.join(root, "dst", "scaler.npz")) as z:
+        scaler_ok = z["mean"].shape == z["scale"].shape == (D_POSE,)
+    if (seqs["pose"].shape != (n_test, CLI_SECONDS * FPS, D_POSE)
+            or seqs["wav"].shape != (n_test, CLI_SECONDS * SR) or not scaler_ok):
+        raise AssertionError("test_seqs.pkl or scaler.npz has the wrong shapes")
+    log(f"[cli] data: {shapes}, test_seqs.pkl {seqs['pose'].shape} / "
+        f"{seqs['wav'].shape}, scaler.npz ({D_POSE},)")
+
+    # train: the checkpoint and the metrics JSONL
+    log_dir = os.path.join(root, "log", "beat-ours")
+    with open(os.path.join(log_dir, "chkpts", "chkpt_seed0.pt.meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(log_dir, f"metrics_{meta['run_id']}.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    val = [r["val/loss"] for r in records if "val/loss" in r]
+    log(f"[cli] train: chkpt_seed0.pt at step {meta['train_step']}, "
+        f"{meta['epochs_run']} epochs, val/loss {['%.4f' % v for v in val]}, "
+        f"metrics_{meta['run_id']}.jsonl {len(records)} records")
+    if (meta["train_step"] != CLI_STEPS or not os.path.exists(
+            os.path.join(log_dir, "chkpts", "chkpt_seed0.pt"))
+            or not np.isfinite(val).all() or not val):
+        raise AssertionError("the train phase left no sound checkpoint")
+
+    # eval: eval_results.json's keys, finite, and the test record in the JSONL
+    with open(os.path.join(log_dir, "results", "eval_results.json")) as f:
+        results = json.load(f)
+    want = {f"test/{k}" for k in BPD_KEYS + ("beat_consistency", "beat_recall")}
+    with open(os.path.join(log_dir, f"metrics_{meta['run_id']}.jsonl")) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    generated = load("log", "beat-ours", "results", "generated.pkl")
+    log(f"[cli] eval: {json.dumps(results)}; generated.pkl {generated['out'].shape}")
+    if (set(results) != want or not np.isfinite(list(results.values())).all()
+            or any(last.get(k) != v for k, v in results.items())
+            or generated["out"].shape != (n_win["test"], WINDOW, D_POSE)
+            or not np.isfinite(generated["out"]).all()):
+        raise AssertionError("eval_results.json or generated.pkl is not right")
+
+    # eval-time: the fused path; gen: euler degrees for every test sequence
+    if "path=fused" not in printed["eval-time"]:
+        raise AssertionError("eval-time did not time the fused kernel")
+    samples = [load("log", "beat-ours", "results", "samples", f"sample_{i}.pkl")
+               for i in range(n_test)]
+    for s in samples:
+        out = s["out"]
+        if (out.shape != (CLI_SECONDS * FPS, D_POSE) or not np.isfinite(out).all()
+                or np.abs(out).max() > 180.0 + 1e-3):
+            raise AssertionError(f"sample out {out.shape} is not finite euler "
+                                 "degrees of the sequence's length")
+    log(f"[cli] gen: {n_test} x sample_i.pkl, out {samples[0]['out'].shape} euler "
+        f"degrees, max |out| {max(np.abs(s['out']).max() for s in samples):.2f}")
+    served = {p: launched[p] for p in ("eval", "eval-time", "gen")}
+    log(f"[cli] fused kernel launches: {served}; prep/data/train "
+        f"{launched['prep'] + launched['data'] + launched['train']}")
+    if launched["eval"] < 1 or launched["gen"] < 1 or launched["eval-time"] < 1:
+        raise AssertionError("eval, eval-time or gen did not launch the fused kernel")
+    log(f"[cli] phases, wall s: "
+        + ", ".join(f"{p} {seconds[p]:.2f}" for p in CLI_PHASES)
+        + f"; all {sum(seconds.values()):.2f} [{smi}]")
+    tmp.cleanup()
+    return sum(served.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -797,6 +953,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_paths(dev, smi)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 7: the phase CLI ----------------------------------------------
+    t0 = time.perf_counter()
+    launches["ddim"] += cli_paths(smi)
+    log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
 
     what = {
         "ddim": ("fused_ddim_sample", f"{TPU_KERNEL}:705",

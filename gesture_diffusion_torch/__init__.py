@@ -5,13 +5,18 @@ never imports).  Layout mirrors the reference package:
 
   * ``diffusion/``  schedules, respacing, q/p functions, the scan DDIM and
                     DDPM samplers, the bpd sweep;
-  * ``ops/``        mel front-end and the fused DDIM/DDPM sampler (CUDA
+  * ``ops/``        mel front-end, the fused DDIM/DDPM sampler (CUDA
                     kernel in ``csrc/fused_ddim.cu`` plus its plain-torch
-                    version);
+                    version), rotation math and the feature scaler;
+  * ``data/``       BVH parsing and writing, the skeleton's forward
+                    kinematics, the pose converter, the windowed dataset;
   * ``models/``     HA2G speech encoder, oneway cross-attention decoder,
                     the denoiser (s2g_v2, default, inpaint), ``build_model``;
-  * ``generation/`` the serving ``Generator`` and ``GestureStream``;
-  * ``interop/``    weights carried across from the JAX package.
+  * ``generation/`` the serving ``Generator`` and ``GestureStream``, the
+                    beat metrics;
+  * ``training/``   losses, AdamW, schedules, checkpoints, the ``Trainer``;
+  * ``interop/``    weights carried across from the JAX package;
+  * ``cli.py``      the phase CLI (prep, data, train, eval, eval-time, gen).
 
 Public functions take (N, T, C) tensors, as the JAX package does.  Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -69,6 +69,17 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         Generator(model, sched, tmap)
     gen = Generator(model, sched, tmap, device="cpu")
     assert gen.device.type == "cpu" and gen.use_fused
+    # the phase CLI: without --device cpu it raises before any phase runs
+    from gesture_diffusion_torch import cli
+
+    ran = []
+    monkeypatch.setitem(cli.PHASES, "data", lambda config, device: ran.append(device))
+    argv = ["--phase", "data", "--config", str(REPO / "configs" / "beat-ours.json")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(argv)
+    assert not ran
+    cli.main(argv + ["--device", "cpu"])
+    assert ran == [torch.device("cpu")]
 
 
 def test_trainer_refuses_cpu_fallback(monkeypatch, tmp_path):

@@ -48,7 +48,10 @@ Phases (any failure raises and the script exits non-zero):
      (20 steps at batch 64), eval (bpd, samples, beat metrics), eval-time
      and gen; each phase's wall seconds, the artifacts' shapes and keys,
      ``path=fused``, and the fused kernel's launches in eval, eval-time
-     and gen (each above 0);
+     and gen (each above 0); then the kernel against its plain version at
+     the CLI's shapes on the trained weights, 1000 steps, at the planned
+     and every forced cluster size: eval's batch of 20 test windows and
+     gen's first window of the 2 test sequences with the x0 blend;
   8. print the kernels' JSON line and, last, the device line.
 
 Needs CUDA; imports nothing of JAX.
@@ -449,21 +452,23 @@ CLI_STEPS = 20           # 5 steps an epoch at batch 64: 4 epochs
 BPD_KEYS = ("total_bpd", "prior_bpd", "vb", "x_start_mse", "mse")
 
 
-def cli_paths(smi) -> int:
+def cli_paths(smi, check) -> int:
     """Phase 7: the port's phase CLI end to end at full width, in process,
     on the card (no --device): ``configs/beat-ours.json`` with
     ``Data.synthetic`` (41 joints, 20 s samples) and a hierarchy template
-    pruned from ``tests/golden/synth_fullbody.bvh``.  Returns the fused
-    kernel's launches in eval and gen; raises on any failed check."""
+    pruned from ``tests/golden/synth_fullbody.bvh``.  Then the kernel at
+    the CLI's shapes on the trained weights, through ``check`` (phase 3's
+    comparison with the plain version).  Returns the fused kernel's
+    launches in eval, eval-time and gen; raises on any failed check."""
     import contextlib
     import io
     import pickle
     import tempfile
 
     from gesture_diffusion_torch import cli
-    from gesture_diffusion_torch.data.bvh import (ancestor_closure, hierarchy_text,
-                                                  parse_bvh, prune_hierarchy)
+    from gesture_diffusion_torch.generation import make_trans_ramp
     from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.utils import JsonConfig
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
     root = tmp.name
@@ -482,17 +487,19 @@ def cli_paths(smi) -> int:
     raw["Meta"] = {"project": "chip-smoke", "log_dir": os.path.join(root, "log"),
                    "name": "beat-ours"}
     # the template ensure_hierarchy_template derives from a corpus BVH
-    skel = parse_bvh(os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh"))
-    keep = ancestor_closure(skel, data["joints"] + data["hierarchy_extra_joints"])
+    hierarchy = cli.hierarchy_template(
+        os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh"),
+        data["joints"], data["hierarchy_extra_joints"])
     os.makedirs(data["spt_dir_path"])
     with open(data["hierarchy_path"], "w") as f:
-        f.write(hierarchy_text(prune_hierarchy(skel, keep)))
+        f.write(hierarchy)
     cfg_path = os.path.join(root, "beat-ours.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f)
     log(f"[cli] beat-ours, d_pose {3 * len(data['joints'])}, Data.synthetic "
         f"{CLI_SPLITS} x {CLI_SECONDS} s, {CLI_STEPS} train steps at batch "
-        f"{raw['Train']['batch_size']}, hierarchy of {len(keep)} joints")
+        f"{raw['Train']['batch_size']}, hierarchy of "
+        f"{hierarchy.count('ROOT ') + hierarchy.count('JOINT ')} joints")
 
     seconds, printed, launched = {}, {}, {}
     for phase in CLI_PHASES:
@@ -587,6 +594,37 @@ def cli_paths(smi) -> int:
     log(f"[cli] phases, wall s: "
         + ", ".join(f"{p} {seconds[p]:.2f}" for p in CLI_PHASES)
         + f"; all {sum(seconds.values()):.2f} [{smi}]")
+
+    # the kernel at the CLI's shapes, on the trained weights (best_params,
+    # the last BN statistics) and the 1000-step schedule: eval's batch of
+    # every test window (identity blend), and gen's first window of each
+    # test sequence (x0 blend on the sequence's seed poses)
+    config = JsonConfig(cfg_path)
+    config.set("Meta.seed", 0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, test_ds, trained = cli.load_eval_objs(config)
+    dev = trained.device
+    draw = torch.Generator(device=dev).manual_seed(3)
+    test = test_ds.get_samples()
+    n_eval, n_gen = test["wav"].shape[0], seqs["pose"].shape[0]
+    ip = torch.zeros(n_gen, WINDOW, D_POSE, device=dev)
+    ip[:, :SEED_LEN] = torch.from_numpy(seqs["pose"][:, :SEED_LEN]).to(dev)
+    im = torch.zeros(n_gen, WINDOW, 1, device=dev)
+    im[:, :SEED_LEN] = 1.0
+    ramp = torch.from_numpy(make_trans_ramp(TRANS_FACTOR, SEED_LEN, WINDOW)).to(dev)
+    with torch.no_grad():
+        eval_args = trained.fused_args(
+            torch.from_numpy(test["wav"]).to(dev), D_POSE, WINDOW,
+            torch.randn(n_eval, WINDOW, D_POSE, generator=draw, device=dev))
+        gen_args = trained.fused_args(
+            torch.from_numpy(seqs["wav"][:, :WINDOW * SR // FPS]).to(dev), D_POSE,
+            WINDOW, torch.randn(n_gen, WINDOW, D_POSE, generator=draw, device=dev),
+            ip, im, ramp)
+    steps = trained.num_steps
+    check("ddim", f"batch {n_eval:2d} identity (eval's batch, trained weights)",
+          eval_args, steps=f"[cli] {steps} steps")
+    check("ddim", f"batch {n_gen:2d} x0-blend (gen's first window, trained weights)",
+          gen_args, steps=f"[cli] {steps} steps")
     tmp.cleanup()
     return sum(served.values())
 
@@ -689,7 +727,7 @@ def main() -> int:
     worst = {}               # variant -> [worst relative, worst absolute]
     worst_c = {}             # cluster size -> worst relative
 
-    def check(variant, label, args, scan=None):
+    def check(variant, label, args, scan=None, steps="ddim50"):
         with torch.no_grad():
             k = fs.fused_ddim_sample(**args)
             planned = fs.last_cluster
@@ -714,7 +752,7 @@ def main() -> int:
             extra = (f"; floor plain-bf16 vs plain-f32-operands "
                      f"{rel(pp, p32[..., :D_POSE]):.3e}; kernel vs fp32 scan "
                      f"{rel(kk, scan):.3e}")
-        log(f"[kernel-vs-plain] ddim50 {label}: max|d|/max|ref| {r:.3e} at "
+        log(f"[kernel-vs-plain] {steps} {label}: max|d|/max|ref| {r:.3e} at "
             f"the planned C={planned} (max|d| {a:.3e}, max|ref| "
             f"{float(pp.abs().max()):.3e}); forced C "
             + ", ".join(f"{c}: {rc:.3e}" for c, rc in per_c.items()) + extra)
@@ -956,7 +994,7 @@ def main() -> int:
 
     # -- phase 7: the phase CLI ----------------------------------------------
     t0 = time.perf_counter()
-    launches["ddim"] += cli_paths(smi)
+    launches["ddim"] += cli_paths(smi, check)
     log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
 
     what = {

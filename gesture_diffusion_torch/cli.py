@@ -20,7 +20,8 @@ Differences by design:
   * only the synthetic route of ``prep`` is ported; BEAT corpus
     preprocessing stays with the JAX CLI, whose samples pickles this CLI
     reads;
-  * settings the port cannot honour raise (``refuse_unported``).
+  * settings the port cannot honour raise (``refuse_unported``) in the
+    phases that build a model: train, eval, eval-time and gen.
 """
 
 import json
@@ -97,10 +98,24 @@ def make_synthetic_samples(config):
     print(f"[Info] Synthetic samples written to {spt}")
 
 
+def hierarchy_template(bvh_path, joints=None, extra=("Neck", "Neck1")) -> str:
+    """The HIERARCHY text of ``bvh_path`` pruned to the ancestor closure
+    of ``joints`` plus those of ``extra`` it has (the neck chain the
+    viewer draws); the whole hierarchy when ``joints`` is empty."""
+    skel = parse_bvh(bvh_path)
+    if joints:
+        # extras go through the closure too: prune_hierarchy's walk only
+        # reaches joints whose whole parent chain is kept
+        keep = ancestor_closure(
+            skel, list(joints) + [j for j in extra if j in skel.joints])
+        skel = prune_hierarchy(skel, keep)
+    return hierarchy_text(skel)
+
+
 def ensure_hierarchy_template(config):
     """Write ``Data.hierarchy_path`` from the corpus if it is missing: the
-    first corpus BVH pruned to the predicted joints' ancestor closure plus
-    ``Data.hierarchy_extra_joints`` (the neck chain the viewer draws)."""
+    first corpus BVH through ``hierarchy_template`` with the predicted
+    joints and ``Data.hierarchy_extra_joints``."""
     hier = config.Data.get("hierarchy_path")
     if not hier or os.path.exists(hier) or config.Data.get("synthetic"):
         return
@@ -114,18 +129,12 @@ def ensure_hierarchy_template(config):
             f"hierarchy template {hier} does not exist and no corpus BVH "
             f"was found under {src} to derive it from; run --phase prep "
             "with the corpus available (or provide the file)")
-    skel = parse_bvh(bvh_paths[0])
-    joints = config.Data.get("joints")
-    if joints:
-        extra = config.Data.get("hierarchy_extra_joints", ["Neck", "Neck1"])
-        # extras go through the closure too: prune_hierarchy's walk only
-        # reaches joints whose whole parent chain is kept
-        keep = ancestor_closure(
-            skel, list(joints) + [j for j in extra if j in skel.joints])
-        skel = prune_hierarchy(skel, keep)
+    text = hierarchy_template(
+        bvh_paths[0], config.Data.get("joints"),
+        config.Data.get("hierarchy_extra_joints", ["Neck", "Neck1"]))
     os.makedirs(os.path.dirname(os.path.abspath(hier)), exist_ok=True)
     with open(hier, "w") as f:
-        f.write(hierarchy_text(skel))
+        f.write(text)
     print(f"[Info] Hierarchy template derived from {bvh_paths[0]} -> {hier}")
 
 
@@ -200,9 +209,14 @@ def train_model(config, device=None):
     trainer.train(max_epochs, early_stop)
 
 
+def _is_bn_stat(name: str) -> bool:
+    return name.endswith(("running_mean", "running_var"))
+
+
 def load_eval_objs(config, device=None):
     """(checkpoint metadata, test dataset, ``Generator`` on the run's best
-    weights, BatchNorm statistics included)."""
+    weights with the last state's BatchNorm statistics, the pairing of the
+    JAX CLI's ``best_params`` and ``state.batch_stats``)."""
     refuse_unported(config)
     dev = resolve_device(device)
     _, _, test_ds = load_datasets(config)
@@ -214,11 +228,14 @@ def load_eval_objs(config, device=None):
             f"{chkpt}: no checkpoint; run --phase train first (the JAX "
             "package's msgpack checkpoints do not load into the port)")
     print(f"[Info] Load chkpt from {chkpt}")
-    tree, meta = load_checkpoint(chkpt, {"best_params": bundle.model.state_dict()},
+    like = bundle.model.state_dict()
+    tree, meta = load_checkpoint(chkpt, {"model": like, "best_params": like},
                                  map_location=dev)
+    variables = {**tree["best_params"], **{
+        k: v for k, v in tree["model"].items() if _is_bn_stat(k)}}
     generator = Generator(bundle.model, bundle.eval_schedule,
                           bundle.eval_timestep_map, device=dev)
-    generator.update_variables(tree["best_params"])
+    generator.update_variables(variables)
     return meta, test_ds, generator
 
 
@@ -390,7 +407,6 @@ def main(argv=None):
     config = JsonConfig(args.config)
     config.update({"Meta.phase": args.phase, "Meta.config_path": args.config,
                    "Meta.seed": args.seed})
-    refuse_unported(config)
     # the reference's fix_seed, plus torch's generator: a fresh model's
     # weights are drawn from it
     np.random.seed(args.seed % 2 ** 32)

@@ -33,8 +33,8 @@ from gesture_diffusion_tpu.data import pipeline as jax_pipeline
 from gesture_diffusion_tpu.diffusion import bpd_loop as jax_bpd_loop
 from gesture_diffusion_tpu.diffusion import make_diffusion as jax_make_diffusion
 from gesture_diffusion_torch import cli
-from gesture_diffusion_torch.data.bvh import (ancestor_closure, hierarchy_text,
-                                              parse_bvh, prune_hierarchy)
+from gesture_diffusion_torch.data.bvh import parse_bvh
+from gesture_diffusion_torch.training import read_checkpoint, save_checkpoint
 
 torch.set_num_threads(1)
 
@@ -89,10 +89,10 @@ def cli_run(tmp_path_factory):
     pruned as ``ensure_hierarchy_template`` prunes a corpus BVH."""
     tmp = tmp_path_factory.mktemp("cli")
     raw = _smoke_config(tmp)
-    skel = parse_bvh(os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh"))
-    keep = ancestor_closure(skel, JOINTS + raw["Data"]["hierarchy_extra_joints"])
     with open(raw["Data"]["hierarchy_path"], "w") as f:
-        f.write(hierarchy_text(prune_hierarchy(skel, keep)))
+        f.write(cli.hierarchy_template(
+            os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh"), JOINTS,
+            raw["Data"]["hierarchy_extra_joints"]))
     cfg = _write(tmp, raw)
     printed = {phase: _run(["--phase", phase, "--config", cfg, "--device", "cpu"])
                for phase in PHASE_ORDER}
@@ -173,6 +173,30 @@ def test_eval_phase_keys_and_outputs(cli_run):
     assert "Batch 1/1" in printed["eval"]
 
 
+def test_eval_pairs_best_params_with_the_last_batch_stats(cli_run, tmp_path):
+    """load_eval_objs serves ``best_params`` with the last state's
+    BatchNorm statistics, as the JAX CLI pairs ``best_params`` with
+    ``state.batch_stats``."""
+    tmp, raw, _ = cli_run
+    tree, meta = read_checkpoint(str(tmp / "log" / "smoke" / "chkpts" / "chkpt_seed0.pt"))
+    bn = [k for k in tree["model"] if k.endswith(("running_mean", "running_var"))]
+    weights = [k for k in tree["model"] if k.endswith("weight")]
+    assert len(bn) == 2 * 39 and weights
+    last = {k: v + 1.0 if k in bn or k == weights[0] else v
+            for k, v in tree["model"].items()}
+    raw = {**raw, "Meta": {**raw["Meta"], "log_dir": str(tmp_path)}}
+    save_checkpoint(str(tmp_path / "smoke" / "chkpts" / "chkpt_seed0.pt"),
+                    {**tree, "model": last}, meta)
+    config = cli.JsonConfig(_write(tmp_path, raw))
+    config.set("Meta.seed", 0)
+    _, _, generator = cli.load_eval_objs(config, device="cpu")
+    served = generator.model.state_dict()
+    for k in bn:
+        torch.testing.assert_close(served[k], last[k], rtol=0, atol=0)
+    torch.testing.assert_close(served[weights[0]], tree["best_params"][weights[0]],
+                               rtol=0, atol=0)
+
+
 def test_eval_time_and_gen_phases(cli_run):
     tmp, raw, printed = cli_run
     assert "path=fused" in printed["eval-time"]
@@ -200,8 +224,8 @@ def test_eval_time_and_gen_phases(cli_run):
     ("Model.Decoder.type", "cross_attention", "Unsupported decoder"),
 ])
 def test_unported_settings_raise(tmp_path, path, value, match):
-    """Refused before any phase runs (nothing is written), by main() and
-    by the phase functions themselves."""
+    """Refused by every phase that builds a model, before it writes
+    anything, through main() and by the phase functions themselves."""
     raw = _smoke_config(tmp_path)
     node = raw
     *parents, leaf = path.split(".")
@@ -209,7 +233,7 @@ def test_unported_settings_raise(tmp_path, path, value, match):
         node = node.setdefault(key, {})
     node[leaf] = value
     cfg = _write(tmp_path, raw)
-    for phase in PHASE_ORDER:
+    for phase in ("train", "eval", "eval-time", "gen"):
         with pytest.raises(ValueError, match=match):
             cli.main(["--phase", phase, "--config", cfg, "--device", "cpu"])
     config = cli.JsonConfig(cfg)

@@ -7,13 +7,17 @@ never imports).  Layout mirrors the reference package:
                     DDPM samplers, the bpd sweep;
   * ``ops/``        mel front-end, the fused DDIM/DDPM sampler (CUDA
                     kernel in ``csrc/fused_ddim.cu`` plus its plain-torch
-                    version), rotation math and the feature scaler;
+                    version), rotation math, the feature scaler and the
+                    skeleton graphs of the GCN decoder;
   * ``data/``       BVH parsing and writing, the skeleton's forward
                     kinematics, the pose converter, the windowed dataset;
-  * ``models/``     HA2G speech encoder, oneway cross-attention decoder,
-                    the denoiser (s2g_v2, default, inpaint), ``build_model``;
-  * ``generation/`` the serving ``Generator`` and ``GestureStream``, the
-                    beat metrics;
+  * ``models/``     HA2G speech encoder; the four decoders of the JAX
+                    factory (oneway and joint-stream cross-attention,
+                    cross-attention GCN, UNet); the denoiser (s2g_v2,
+                    default, inpaint), ``build_model``;
+  * ``generation/`` the serving ``Generator`` (the fused kernel for the
+                    oneway decoder, the scan sampler for the others) and
+                    ``GestureStream``, the beat metrics, the FGD evaluator;
   * ``training/``   losses, AdamW, schedules, checkpoints, the ``Trainer``;
   * ``interop/``    weights carried across from the JAX package;
   * ``cli.py``      the phase CLI (prep, data, train, eval, eval-time, gen).

@@ -21,7 +21,10 @@ Differences by design:
     preprocessing stays with the JAX CLI, whose samples pickles this CLI
     reads;
   * settings the port cannot honour raise (``refuse_unported``) in the
-    phases that build a model: train, eval, eval-time and gen.
+    phases that build a model: train, eval, eval-time and gen;
+  * the FGD embedding net (``Eval.fgd``) is a torch file beside the
+    configured path, with its suffix replaced by ``.pt``; a JAX
+    ``.msgpack`` net there raises rather than being trained over.
 """
 
 import json
@@ -40,6 +43,8 @@ from gesture_diffusion_torch.data.pose_converter import PoseTypeConverter
 from gesture_diffusion_torch.generation import Generator
 from gesture_diffusion_torch.generation.eval_utils import (
     beat_consistency_score, beat_recall_score)
+from gesture_diffusion_torch.generation.fgd import (EmbeddingSpaceEvaluator,
+                                                    load_or_train_motion_ae)
 from gesture_diffusion_torch.models import build_all
 from gesture_diffusion_torch.models.factory import SUPPORTED_DECODERS
 from gesture_diffusion_torch.training import (MetricsLogger, Trainer,
@@ -50,7 +55,8 @@ from gesture_diffusion_torch.utils.device import resolve_device
 
 
 def refuse_unported(config) -> None:
-    """Raise on a setting the port cannot honour yet, rather than ignore it."""
+    """Raise on a setting the port cannot honour, rather than ignore it,
+    before a phase writes anything."""
     train = config.get("Train") or {}
     if train.get("dtype") is not None:
         raise ValueError(
@@ -62,15 +68,16 @@ def refuse_unported(config) -> None:
             f"Train.world_size={world!r}: the port trains on one GPU until "
             "multi-GPU training is ported (ROADMAP queue 1 item 7); use 1 "
             "or \"auto\"")
-    if (config.get("Eval") or {}).get("fgd") is not None:
-        raise ValueError(
-            "Eval.fgd: the FGD evaluator (generation/fgd.py) is not ported "
-            "yet (ROADMAP queue 1 item 3); remove Eval.fgd")
-    decoder = ((config.get("Model") or {}).get("Decoder") or {}).get("type")
+    model = config.get("Model") or {}
+    decoder = (model.get("Decoder") or {}).get("type")
     if decoder is not None and decoder not in SUPPORTED_DECODERS:
         raise ValueError(
-            f"Unsupported decoder type {decoder}: the port has "
-            f"{', '.join(SUPPORTED_DECODERS)} (ROADMAP queue 1 item 5)")
+            f"Unsupported decoder type {decoder}: the JAX factory and the "
+            f"port build {', '.join(SUPPORTED_DECODERS)}")
+    encoder = (model.get("Encoder") or {}).get("type", "ha2g")
+    if encoder != "ha2g":
+        raise ValueError(f"Unsupported encoder type {encoder}: the JAX "
+                         "factory and the port build ha2g")
 
 
 def make_synthetic_samples(config):
@@ -314,6 +321,23 @@ def evaluate(config, device=None):
         output_all.append(out)
         print(f"[Info] Batch {i + 1}/{num_batches} | "
               f"{time.perf_counter() - st:.2f}s")
+
+    # FGD in embedding space (Eval.fgd), on a net fit to the train split
+    fgd_cfg = (config.get("Eval") or {}).get("fgd")
+    if fgd_cfg is not None:
+        train_ds, _, _ = load_datasets(config)
+        # trained once (seeded) and kept, so consecutive evals score with
+        # the same net
+        net = load_or_train_motion_ae(
+            fgd_cfg.get("eval_net_path")
+            or os.path.join(_log_dir(config), "fgd_motion_ae.pt"),
+            train_ds.get_samples()["pose"],
+            latent_dim=fgd_cfg.get("latent_dim", 32),
+            steps=fgd_cfg.get("train_steps", 2000), device=dev)
+        ev = EmbeddingSpaceEvaluator(net)
+        ev.push_samples(np.concatenate(output_all, axis=0), samples["pose"])
+        metrics["fgd"], metrics["feat_dist"] = ev.get_scores()
+        metrics["diversity"] = ev.get_diversity_scores()
 
     test_log = {f"test/{k}": v for k, v in metrics.items()}
     result_dir = os.path.join(_log_dir(config), "results")

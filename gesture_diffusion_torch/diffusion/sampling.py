@@ -4,8 +4,10 @@
 Port of ``gesture_diffusion_tpu/diffusion/sampling.py``
 (``ddpm_sample_loop``, ``ddim_sample_loop``, ``prior_bpd``, ``bpd_loop``).
 ``model_fn`` closes over the speech memory, so the encoder runs once per
-clip.  These are the samplers of ``Generator(use_fused=False)``; the
-serving path runs the fused kernel instead (``ops/fused_sampler.py``).
+clip.  These are the samplers of ``Generator(use_fused=False)`` and of
+every decoder the fused kernel does not serve (all but the oneway one);
+a oneway ``Generator`` runs the fused kernel instead
+(``ops/fused_sampler.py``).
 """
 
 from __future__ import annotations

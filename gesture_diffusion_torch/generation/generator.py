@@ -2,14 +2,17 @@
 latency.
 
 Port of ``gesture_diffusion_tpu/generation/generator.py`` (the serving
-path), for all three model types (s2g_v2, default, inpaint) and both
-sampling algorithms (ddim, ddpm):
+path), for every decoder, all three model types (s2g_v2, default,
+inpaint) and both sampling algorithms (ddim, ddpm):
 
   * ``generate_sample`` — the speech memory is encoded once per clip, then
     the whole reverse process runs in the fused kernel
-    (``ops/fused_sampler.py``) or, with ``use_fused=False``, in a scan
-    sampler (the ``nn.Module`` stepped by ``ddim_sample_loop`` or
-    ``ddpm_sample_loop``);
+    (``ops/fused_sampler.py``) or in a scan sampler (the ``nn.Module``
+    stepped by ``ddim_sample_loop`` or ``ddpm_sample_loop``).  The model
+    chooses, as the JAX Generator's ``_fused_enabled`` does: the kernel
+    fuses the oneway decoder only, so every other decoder (cross-attention,
+    GCN, UNet) runs the scan sampler; a oneway model takes the scan only
+    when the caller passes ``use_fused=False``;
   * seed-pose continuation through the x0 blend with the ``trans_factor``
     per-frame ramp; for the inpaint model type the same seed poses and mask
     also feed its conditioning MLP, computed once per call (``x_add``);
@@ -24,9 +27,9 @@ sampling algorithms (ddim, ddpm):
   * ``eval_infer_time`` — warm-up, then timed reps that end in a
     device synchronise.
 
-Unlike the JAX Generator there is no silent fallback: with
-``use_fused=True`` every batch goes through the kernel on the card (or
-its plain version for a CPU Generator), and a kernel that cannot run
+Unlike the JAX Generator there is no silent fallback: for a oneway model
+with ``use_fused=True`` every batch goes through the kernel on the card
+(or its plain version for a CPU Generator), and a kernel that cannot run
 raises.  Compute-dtype policy: ``fused_dtype`` (default bfloat16) is both
 the packed weight dtype and the dtype the operands of every product are
 rounded to; accumulation, LayerNorm, softmax, the residual stream and the
@@ -114,9 +117,10 @@ class Generator:
         fused_dtype: Optional[torch.dtype] = None,
         device=None,
     ):
-        """:param use_fused: sample through the fused kernel (the
-        default); False is the caller's explicit choice of a scan
-        sampler.
+        """:param use_fused: sample a oneway model through the fused kernel
+        (the default); False is the caller's explicit choice of a scan
+        sampler.  Other decoders have no fused kernel and always take the
+        scan sampler, whatever ``use_fused`` says.
         :param fused_dtype: weight and product-operand dtype of the fused
         path (bfloat16 by default; the CUDA kernel takes only bfloat16).
         :param device: the card unless ``"cpu"`` is asked for."""
@@ -127,6 +131,10 @@ class Generator:
         self.timestep_map = (None if timestep_map is None
                              else torch.as_tensor(timestep_map).to(self.device))
         self.use_fused = bool(use_fused)
+        #: whether generate_sample runs the fused kernel: the caller's
+        #: use_fused, for a model whose decoder the kernel fuses
+        self.fused = self.use_fused and self.model.cfg.decoder_type == \
+            "oneway_cross_attention"
         self.fused_dtype = fused_dtype or torch.bfloat16
         #: which path produced the last ``generate_sample`` output:
         #: "fused" (the fused sampler) or "scan" (the module step loop)
@@ -188,7 +196,14 @@ class Generator:
         """Keyword arguments of ``fused_ddim_sample`` for one window batch
         (device tensors in): the cached pack, padded x_T, memory rows, the
         blend tensors (None for the identity blend), the inpaint type's
-        ``x_add``, and the schedule of ``sample_alg``."""
+        ``x_add``, and the schedule of ``sample_alg``.  Only for a
+        Generator that samples through the fused kernel (``self.fused``):
+        the pack and the memory rows read the oneway decoder's weights."""
+        if not self.fused:
+            raise ValueError(
+                f"no fused kernel for this Generator (decoder "
+                f"{self.model.cfg.decoder_type!r}, use_fused={self.use_fused}): "
+                "it samples with the scan sampler")
         cfg = self.model.cfg
         key = (pose_dim, pose_window_len)
         if self._packed is None or self._packed_key != key:
@@ -294,7 +309,7 @@ class Generator:
         tests inject the JAX package's draws)."""
         if sample_alg not in ("ddim", "ddpm"):
             raise ValueError(f"unknown sample_alg {sample_alg!r}")
-        if z_fn is not None and self.use_fused:
+        if z_fn is not None and self.fused:
             raise ValueError("z_fn feeds the scan sampler only "
                              "(use_fused=False)")
         wavs = self._wavs(wavs)
@@ -318,7 +333,7 @@ class Generator:
             noise = torch.randn((n, pose_window_len, pose_dim),
                                 generator=generator, device=gdev)
         noise = self._tensor(noise)
-        if self.use_fused:
+        if self.fused:
             seed = 0
             if sample_alg == "ddpm":
                 # stays a tensor: no host round trip on the dispatch path

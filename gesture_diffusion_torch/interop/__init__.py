@@ -1,3 +1,3 @@
-from .jax_import import state_dict_from_jax
+from .jax_import import motion_ae_state_dict_from_jax, state_dict_from_jax
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["motion_ae_state_dict_from_jax", "state_dict_from_jax"]

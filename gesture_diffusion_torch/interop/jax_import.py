@@ -1,19 +1,24 @@
 """Weights from the JAX package into the port's ``state_dict``.
 
 ``state_dict_from_jax(variables, cfg)`` is the exact inverse of the JAX
-package's ``interop/torch_import.py::import_torch_state_dict`` for the
-oneway decoder and all three model types (the inpaint type's conditioning
-MLP is flax ``inpaint_proj/layers_{0,2,4}`` and ``proj.{0,2,4}`` here).  Input: the JAX
-``{"params", "batch_stats"}`` tree as numpy arrays (anything
+package's ``interop/torch_import.py::import_torch_state_dict`` for all
+four decoders (oneway, cross-attention, GCN, UNet) and all three model
+types (the inpaint type's conditioning MLP is flax
+``inpaint_proj/layers_{0,2,4}`` and ``proj.{0,2,4}`` here).  Input: the
+JAX ``{"params", "batch_stats"}`` tree as numpy arrays (anything
 ``np.asarray`` accepts).  Output: tensors under the reference checkpoint's
 names, which are the port modules' own names.
 
 Layout conversions:
   * Dense ``kernel`` (I, O)            -> Linear ``weight`` (O, I)
   * Conv HWIO (kh, kw, I, O)           -> Conv2d OIHW (O, I, kh, kw)
+  * 1-D conv (k, I, O)                 -> Conv1d (O, I, k)
+  * Dense (I, O) of a 1x1 conv         -> Conv1d (O, I, 1) / Conv2d (O, I, 1, 1)
+    (channel order kept: the UNet's head-major QKV and the graph conv's
+    partition-major outputs carry over as they are)
   * depthwise conv taps (3, d_k)       -> grouped Conv1d (d_k, 1, 3)
   * BatchNorm scale/bias + mean/var    -> weight/bias + running_mean/var
-  * LayerNorm scale/bias               -> weight/bias
+  * LayerNorm / GroupNorm scale/bias   -> weight/bias
 """
 
 from __future__ import annotations
@@ -40,6 +45,22 @@ def _linear(sd: dict, prefix: str, p: Mapping) -> None:
 
 def _conv(sd: dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_nd(sd: dict, prefix: str, p: Mapping) -> None:
+    """flax channel-last kernel (*k, I, O) -> torch (O, I, *k)."""
+    w = np.moveaxis(np.asarray(p["kernel"]), (-1, -2), (0, 1))
+    sd[f"{prefix}.weight"] = _t(w)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv1_from_dense(sd: dict, prefix: str, p: Mapping, ndim: int = 1) -> None:
+    """Dense (I, O) -> a 1x1 conv's (O, I, 1[, 1])."""
+    w = np.asarray(p["kernel"]).T
+    sd[f"{prefix}.weight"] = _t(w.reshape(w.shape + (1,) * ndim))
     if "bias" in p:
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -108,12 +129,120 @@ def _oneway_decoder(sd: dict, base: str, p: Mapping, n_layers: int) -> None:
     _linear(sd, f"{base}.out_layers.1", p["out_proj"])
 
 
+def _cross_layer(sd: dict, lp: str, lj: Mapping, with_ff_mem: bool) -> None:
+    _layernorm(sd, f"{lp}.norm_self_attn", lj["norm_self_attn"])
+    _mha(sd, f"{lp}.self_attn", lj["self_attn"])
+    _layernorm(sd, f"{lp}.norm_self_attn_mem", lj["norm_self_attn_mem"])
+    _mha(sd, f"{lp}.self_attn_mem", lj["self_attn_mem"])
+    _layernorm(sd, f"{lp}.norm_cross_attn", lj["norm_cross_attn"])
+    _mha(sd, f"{lp}.cross_attn", lj["cross_attn"])
+    _layernorm(sd, f"{lp}.norm_ff", lj["norm_ff"])
+    _linear(sd, f"{lp}.feed_forward.layer1", lj["ff"]["layer1"])
+    _linear(sd, f"{lp}.feed_forward.layer2", lj["ff"]["layer2"])
+    if with_ff_mem:
+        _layernorm(sd, f"{lp}.norm_ff_mem", lj["norm_ff_mem"])
+        _linear(sd, f"{lp}.feed_forward_mem.layer1", lj["ff_mem"]["layer1"])
+        _linear(sd, f"{lp}.feed_forward_mem.layer2", lj["ff_mem"]["layer2"])
+
+
+def _cross_decoder(sd: dict, base: str, p: Mapping, n_layers: int) -> None:
+    _linear(sd, f"{base}.emb_x", p["emb_x"])
+    _linear(sd, f"{base}.emb_mem", p["emb_mem"])
+    for i in range(n_layers):
+        _cross_layer(sd, f"{base}.layers.{i}", p[f"layer{i}"], i < n_layers - 1)
+    _layernorm(sd, f"{base}.out_layers.0", p["out_norm"])
+    _linear(sd, f"{base}.out_layers.1", p["out_proj"])
+
+
+def _gcn_decoder(sd: dict, base: str, p: Mapping, n_layers: int) -> None:
+    _linear(sd, f"{base}.emb_x", p["emb_x"])
+    _linear(sd, f"{base}.emb_mem", p["emb_mem"])
+    for i in range(n_layers):
+        lp, lj = f"{base}.layers.{i}", p[f"layer{i}"]
+        _layernorm(sd, f"{lp}.norm_gcn", lj["norm_gcn"])
+        _conv1_from_dense(sd, f"{lp}.gcn.conv", lj["gcn"]["proj"], ndim=2)
+        _cross_layer(sd, lp, lj["attn"], i < n_layers - 1)
+    _linear(sd, f"{base}.out_layers", p["out_proj"])
+
+
+def _unet_res_block(sd: dict, prefix: str, p: Mapping) -> None:
+    _layernorm(sd, f"{prefix}.in_layers.0", p["norm_in"])
+    _conv_nd(sd, f"{prefix}.in_layers.2", p["conv_in"])
+    _linear(sd, f"{prefix}.emb_layers.1", p["emb_proj"])
+    _layernorm(sd, f"{prefix}.out_layers.0", p["norm_out"])
+    _conv_nd(sd, f"{prefix}.out_layers.3", p["conv_out"])
+    if "skip_proj" in p:
+        _conv_nd(sd, f"{prefix}.skip_connection", p["skip_proj"])
+
+
+def _unet_attn_block(sd: dict, prefix: str, p: Mapping) -> None:
+    _layernorm(sd, f"{prefix}.norm", p["norm"])
+    _conv1_from_dense(sd, f"{prefix}.qkv", p["qkv"])
+    _conv1_from_dense(sd, f"{prefix}.proj_out", p["proj_out"])
+    if "encoder_kv" in p:
+        _conv1_from_dense(sd, f"{prefix}.encoder_kv", p["encoder_kv"])
+
+
+def _unet_decoder(sd: dict, base: str, p: Mapping, cfg) -> None:
+    """Walks the block-construction loop of the JAX importer's
+    ``_unet_decoder`` (GLIDE's), so torch block indices line up with the
+    flax layer names."""
+    channel_mult = tuple(cfg.channel_mult)
+    attn_res = set(cfg.attention_resolutions)
+    nrb = cfg.n_layers
+    _linear(sd, f"{base}.time_embed.0", p["time_embed_0"])
+    _linear(sd, f"{base}.time_embed.2", p["time_embed_2"])
+    u = p["unet"]
+    _conv_nd(sd, f"{base}.input_blocks.0.0", u["conv_in"])
+    ds, ti = 1, 1
+    for level in range(len(channel_mult)):
+        for i in range(nrb):
+            _unet_res_block(sd, f"{base}.input_blocks.{ti}.0", u[f"down_{level}_{i}"])
+            if ds in attn_res:
+                _unet_attn_block(sd, f"{base}.input_blocks.{ti}.1",
+                                 u[f"down_attn_{level}_{i}"])
+            ti += 1
+        if level != len(channel_mult) - 1:
+            _conv_nd(sd, f"{base}.input_blocks.{ti}.0.op", u[f"downsample_{level}"])
+            ti += 1
+            ds *= 2
+    _unet_res_block(sd, f"{base}.middle_block.0", u["middle_res1"])
+    _unet_attn_block(sd, f"{base}.middle_block.1", u["middle_attn"])
+    _unet_res_block(sd, f"{base}.middle_block.2", u["middle_res2"])
+    for oi in range(len(channel_mult) * (nrb + 1)):
+        level = len(channel_mult) - 1 - oi // (nrb + 1)
+        i = oi % (nrb + 1)
+        _unet_res_block(sd, f"{base}.output_blocks.{oi}.0", u[f"up_{level}_{i}"])
+        li = 1
+        if ds in attn_res:
+            _unet_attn_block(sd, f"{base}.output_blocks.{oi}.{li}",
+                             u[f"up_attn_{level}_{i}"])
+            li += 1
+        if level and i == nrb:
+            _conv_nd(sd, f"{base}.output_blocks.{oi}.{li}.conv",
+                     u[f"upsample_{level}"])
+            ds //= 2
+    _layernorm(sd, f"{base}.out.0", u["norm_out"])
+    _conv_nd(sd, f"{base}.out.2", u["conv_out"])
+
+
+_DECODERS = {
+    "oneway_cross_attention":
+        lambda sd, p, cfg: _oneway_decoder(sd, "pose_decoder", p, cfg.n_layers),
+    "cross_attention":
+        lambda sd, p, cfg: _cross_decoder(sd, "pose_decoder", p, cfg.n_layers),
+    "cross_attention_gcn":
+        lambda sd, p, cfg: _gcn_decoder(sd, "pose_decoder", p, cfg.n_layers),
+    "unet_attention":
+        lambda sd, p, cfg: _unet_decoder(sd, "pose_decoder", p, cfg),
+}
+
+
 def state_dict_from_jax(variables: Mapping, cfg) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``{"params", "batch_stats"}`` -> port ``state_dict``.  ``cfg`` is
     either package's ``DenoiserConfig`` (only its fields are read)."""
-    if cfg.decoder_type != "oneway_cross_attention":
-        raise NotImplementedError(
-            f"decoder {cfg.decoder_type!r} is not ported yet")
+    if cfg.decoder_type not in _DECODERS:
+        raise ValueError(f"Unsupported decoder type {cfg.decoder_type!r}")
     if cfg.model_type not in ("s2g_v2", "default", "inpaint"):
         raise ValueError(f"Unsupported model_type {cfg.model_type!r}")
     params, stats = variables["params"], variables["batch_stats"]
@@ -126,10 +255,26 @@ def state_dict_from_jax(variables: Mapping, cfg) -> "OrderedDict[str, torch.Tens
             params["step_encoder"]["proj1"])
     _linear(sd, "diffusion_step_encoder.proj.2",
             params["step_encoder"]["proj2"])
-    _oneway_decoder(sd, "pose_decoder", params["decoder"], cfg.n_layers)
+    _DECODERS[cfg.decoder_type](sd, params["decoder"], cfg)
     if cfg.model_type == "s2g_v2":
         _linear(sd, "blend_layer", params["blend_layer"])
     if cfg.model_type == "inpaint":
         for i in (0, 2, 4):
             _linear(sd, f"proj.{i}", params["inpaint_proj"][f"layers_{i}"])
+    return sd
+
+
+def motion_ae_state_dict_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX package's FGD ``MotionAE`` variables (``{"params": ...}``)
+    -> the port's ``generation/fgd.py::MotionAE`` state dict: flax
+    ``Conv_i`` / ``LayerNorm_i`` / ``Dense_i`` are ``convs.{i}`` /
+    ``norms.{i}`` / ``fcs.{i}``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    kinds = {"Conv": ("convs", _conv_nd), "LayerNorm": ("norms", _layernorm),
+             "Dense": ("fcs", _linear)}
+    for part in ("encoder", "decoder"):
+        for name, p in variables["params"][part].items():
+            kind, i = name.rsplit("_", 1)
+            attr, convert = kinds[kind]
+            convert(sd, f"{part}.{attr}.{i}", p)
     return sd

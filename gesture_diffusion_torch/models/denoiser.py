@@ -1,7 +1,8 @@
 """The conditional gesture denoiser (epsilon predictor).
 
-Port of ``gesture_diffusion_tpu/models/denoiser.py`` for the oneway
-decoder and all three model types:
+Port of ``gesture_diffusion_tpu/models/denoiser.py`` for every decoder
+of the JAX factory (``oneway_cross_attention``, ``cross_attention``,
+``cross_attention_gcn``, ``unet_attention``) and all three model types:
 
   * ``encode_memory(wav)`` — timestep-independent speech conditioning, run
     once per clip by the samplers;
@@ -18,11 +19,12 @@ them on channels and blends them with ``blend_layer``; "inpaint" is
 "default" plus x += MLP([seed_pose * mask ; mask]), an MLP that starts at
 zero (GLIDE-style).  Layout (N, T, C).
 
-Train mode (``model.train()``) turns on dropout (step encoder, inpaint
-MLP, speech streams, decoder) and the batch statistics of the encoder's
-BatchNorms.  ``encoder_dtype="bfloat16"`` runs the SE-ResNet trunk in bf16
-and everything after it in f32: the blend layer and the decoder take the
-speech memory promoted to f32.
+The decoder is ``pose_decoder``, under the reference checkpoint's module
+names.  Train mode (``model.train()``) turns on dropout (step encoder,
+inpaint MLP, speech streams, decoder) and the batch statistics of the
+encoder's BatchNorms.  ``encoder_dtype="bfloat16"`` runs the SE-ResNet
+trunk in bf16 and everything after it in f32: the blend layer and the
+decoder take the speech memory promoted to f32.
 """
 
 from __future__ import annotations
@@ -35,10 +37,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .decoders import OnewayCrossAttention
+from .decoders import CrossAttention, OnewayCrossAttention
+from .gcn_decoder import CrossAttentionGCN
 from .speech_encoder import HA2GSpeechEncoder
+from .unet_decoder import UNetAttn
 
 MODEL_TYPES = ("default", "s2g_v2", "inpaint")
+DECODER_TYPES = ("oneway_cross_attention", "cross_attention",
+                 "cross_attention_gcn", "unet_attention")
 
 
 def timestep_freqs(dim: int, max_period: float = 10000.0,
@@ -82,15 +88,22 @@ class DenoiserConfig:
     n_layers: int = 4
     dropout: float = 0.0
     model_type: str = "s2g_v2"            # default | s2g_v2 | inpaint
-    decoder_type: str = "oneway_cross_attention"
+    decoder_type: str = "oneway_cross_attention"   # one of DECODER_TYPES
     pose_seed_len: int = 10               # inpaint only
     encoder_dtype: Optional[str] = None   # "bfloat16": the conv trunk only
+    # cross_attention_gcn extras
+    graph_layout: str = "beat"
+    graph_strategy: str = "spatial"
+    # unet_attention extras (n_layers is the ResBlocks per level)
+    channel_mult: tuple = (1, 2, 4)
+    attention_resolutions: tuple = (1, 2, 4)
+    window_len: int = 40
 
 
 class GestureDenoiser(nn.Module):
     def __init__(self, cfg: DenoiserConfig):
         super().__init__()
-        if cfg.decoder_type != "oneway_cross_attention":
+        if cfg.decoder_type not in DECODER_TYPES:
             raise ValueError(f"Unsupported decoder type {cfg.decoder_type}")
         if cfg.model_type not in MODEL_TYPES:
             raise ValueError(f"Unsupported model_type {cfg.model_type}")
@@ -100,10 +113,23 @@ class GestureDenoiser(nn.Module):
             getattr(torch, cfg.encoder_dtype) if cfg.encoder_dtype else None)
         self.diffusion_step_encoder = DiffusionStepEncoder(cfg.d_model,
                                                            cfg.dropout)
-        self.pose_decoder = OnewayCrossAttention(
-            d_x=cfg.d_pose, d_memory=cfg.d_model, d_model=cfg.d_model,
-            heads=cfg.heads, n_layers=cfg.n_layers, d_out=cfg.d_pose,
-            dropout=cfg.dropout)
+        common = dict(d_x=cfg.d_pose, d_memory=cfg.d_model,
+                      d_model=cfg.d_model, heads=cfg.heads,
+                      n_layers=cfg.n_layers, d_out=cfg.d_pose,
+                      dropout=cfg.dropout)
+        if cfg.decoder_type == "oneway_cross_attention":
+            self.pose_decoder = OnewayCrossAttention(**common)
+        elif cfg.decoder_type == "cross_attention":
+            self.pose_decoder = CrossAttention(**common)
+        elif cfg.decoder_type == "cross_attention_gcn":
+            self.pose_decoder = CrossAttentionGCN(
+                graph_layout=cfg.graph_layout,
+                graph_strategy=cfg.graph_strategy, **common)
+        else:
+            self.pose_decoder = UNetAttn(
+                channel_mult=tuple(cfg.channel_mult),
+                attention_resolutions=tuple(cfg.attention_resolutions),
+                window_len=cfg.window_len, **common)
         if cfg.model_type == "s2g_v2":
             self.blend_layer = nn.Linear(3 * cfg.d_model, cfg.d_model)
         if cfg.model_type == "inpaint":

@@ -1,9 +1,9 @@
 """Config-driven construction of the model and its diffusion schedules.
 
 Port of ``gesture_diffusion_tpu/models/factory.py`` over the flat config
-schema of ``configs/beat-ours.json``, for the oneway decoder (the only one
-ported so far).  ``build_model`` places the model on the card unless the
-caller passes ``device="cpu"``.  The optimizer and its learning-rate
+schema of ``configs/beat-ours.json`` and ``configs/tedexp-ours.json``, for
+all four decoders of the JAX factory.  ``build_model`` places the model on
+the card unless the caller passes ``device="cpu"``.  The optimizer and its learning-rate
 schedule are built in ``training`` (``make_optimizer``).
 """
 
@@ -17,17 +17,18 @@ import torch.nn as nn
 
 from ..diffusion import Schedule, make_diffusion
 from ..utils.device import resolve_device
-from .denoiser import DenoiserConfig, GestureDenoiser
+from .denoiser import DECODER_TYPES, DenoiserConfig, GestureDenoiser
 
-SUPPORTED_DECODERS = ("oneway_cross_attention",)
+SUPPORTED_DECODERS = DECODER_TYPES
 
 
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every parameter and BN statistic from ``generator`` (on the
     CPU, so a seed gives the same weights on any device): Glorot-uniform
-    weights, small random biases, LayerNorm/BN affine near identity, BN
-    running statistics off (0, 1)."""
+    weights (the zero-initialised UNet outputs too), small random biases,
+    LayerNorm/GroupNorm/BN affine near identity, BN running statistics off
+    (0, 1)."""
     def draw(shape):
         return torch.rand(shape, generator=generator) * 2.0 - 1.0
 
@@ -42,7 +43,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(draw(w.shape) * math.sqrt(6.0 / (fan_in + fan_out)))
             if mod.bias is not None:
                 mod.bias.copy_(0.02 * draw(mod.bias.shape))
-        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
             mod.weight.copy_(1.0 + 0.1 * draw(mod.weight.shape))
             mod.bias.copy_(0.1 * draw(mod.bias.shape))
             if isinstance(mod, nn.BatchNorm2d):
@@ -65,16 +66,30 @@ def build_model(d_pose: int, model_params, device=None,
     if encoder_params is not None and encoder_params.get("type", "ha2g") != "ha2g":
         raise ValueError(f"Unsupported encoder type {encoder_params.type}")
     gen = model_params.get("Generate")
+    extras = {}
+    if decoder_params.type == "cross_attention_gcn":
+        extras = dict(graph_layout=decoder_params.get("graph_layout", "beat"),
+                      graph_strategy=decoder_params.get("graph_strategy", "spatial"))
+    elif decoder_params.type == "unet_attention":
+        # the reference schema: num_res_blocks, channel_mult,
+        # attention_resolutions, window_len, num_heads
+        extras = dict(
+            channel_mult=tuple(decoder_params.get("channel_mult", (1, 2, 4))),
+            attention_resolutions=tuple(
+                decoder_params.get("attention_resolutions", (1, 2, 4))),
+            window_len=decoder_params.get("window_len", 40))
     model = GestureDenoiser(DenoiserConfig(
         d_pose=d_pose,
         d_model=model_params.d_model,
         heads=decoder_params.get("heads", decoder_params.get("num_heads", 8)),
-        n_layers=decoder_params.get("n_layers", 4),
+        n_layers=decoder_params.get("n_layers",
+                                    decoder_params.get("num_res_blocks", 4)),
         dropout=model_params.get("dropout_prob", 0.0),
         model_type=model_params.get("type", "s2g_v2"),
         decoder_type=decoder_params.type,
         pose_seed_len=(gen.get("pose_seed_len", 10) if gen is not None else 10),
         encoder_dtype=encoder_dtype,
+        **extras,
     ))
     if generator is not None:
         init_random_(model, generator)

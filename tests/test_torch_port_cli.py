@@ -220,12 +220,14 @@ def test_eval_time_and_gen_phases(cli_run):
 @pytest.mark.parametrize("path,value,match", [
     ("Train.dtype", "bfloat16", "Train.dtype"),
     ("Train.world_size", 4, "world_size"),
-    ("Eval.fgd", {"latent_dim": 8}, "Eval.fgd"),
-    ("Model.Decoder.type", "cross_attention", "Unsupported decoder"),
+    ("Model.Encoder.type", "wav2vec2", "Unsupported encoder"),
+    ("Model.Decoder.type", "transformer", "Unsupported decoder"),
 ])
 def test_unported_settings_raise(tmp_path, path, value, match):
     """Refused by every phase that builds a model, before it writes
-    anything, through main() and by the phase functions themselves."""
+    anything, through main() and by the phase functions themselves.  Every
+    decoder and encoder the JAX factory builds is ported, so the types
+    refused are ones the JAX factory refuses too."""
     raw = _smoke_config(tmp_path)
     node = raw
     *parents, leaf = path.split(".")
@@ -284,3 +286,66 @@ def test_module_entry_and_console_script():
                          capture_output=True, text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     assert all(flag in out.stdout for flag in ("--phase", "--config", "--seed", "--device"))
+
+
+# -- the TED-Expressive configuration, scaled down -----------------------------
+
+TED_JOINTS, TED_SECONDS = 42, 8
+TED_SPLITS = {"n_train": 2, "n_val": 2, "n_test": 6}
+
+
+def _tedexp_config(tmp) -> dict:
+    """``configs/tedexp-ours.json`` with 2 layers at d_model 64, 50
+    diffusion steps sampled as ddim10, batch 4 for 2 steps, and
+    ``Data.synthetic``: 42 joints in euler (d_pose 126, the configuration's
+    width), 2/2/6 samples of 8 s at 15 fps; no ``hierarchy_path``, so eval
+    skips the beat metrics and gen writes the euler poses as they are.  The
+    FGD net trains 20 steps with a latent of 8 (18 test windows)."""
+    with open(os.path.join(REPO, "configs", "tedexp-ours.json")) as f:
+        raw = json.load(f)
+    raw["Data"].update({
+        "synthetic": {**TED_SPLITS, "seconds": TED_SECONDS,
+                      "n_joints": TED_JOINTS},
+        "sample_duration": float(TED_SECONDS),
+        "spt_dir_path": str(tmp / "spt"), "dst_dir_path": str(tmp / "dst")})
+    raw["Model"]["d_model"] = 64
+    raw["Model"]["Decoder"]["n_layers"] = 2
+    raw["Model"]["Diffusion"].update({"diffusion_steps": 50,
+                                      "timestep_respacing": "ddim10"})
+    raw["Model"]["Generate"]["bpd_t_block"] = 2
+    raw["Train"].update({"batch_size": 4, "max_training_steps": "2",
+                         "early_stop_threshold_in_step": "2"})
+    raw["Eval"]["fgd"].update({"eval_net_path": str(tmp / "fgd" / "fgd_ae.msgpack"),
+                               "latent_dim": 8, "train_steps": 20})
+    raw["Meta"] = {"project": "smoke", "log_dir": str(tmp / "log"), "name": "tedexp"}
+    return raw
+
+
+def test_tedexp_six_phases(tmp_path):
+    """prep -> data -> train -> eval -> eval-time -> gen on the
+    cross-attention decoder: eval writes finite FGD, latent distance and
+    diversity beside the bpd terms, eval-time times the scan sampler, gen
+    writes every test sequence."""
+    raw = _tedexp_config(tmp_path)
+    cfg = _write(tmp_path, raw)
+    printed = {phase: _run(["--phase", phase, "--config", cfg, "--device", "cpu"])
+               for phase in PHASE_ORDER}
+    log = tmp_path / "log" / "tedexp"
+    assert (log / "chkpts" / "chkpt_seed0.pt").exists()
+    results = json.loads((log / "results" / "eval_results.json").read_text())
+    fgd_keys = {"test/fgd", "test/feat_dist", "test/diversity"}
+    assert fgd_keys <= set(results)
+    assert not {"test/beat_consistency", "test/beat_recall"} & set(results)
+    assert np.isfinite(list(results.values())).all()
+    assert results["test/fgd"] < 1e10       # not the failed-sqrtm sentinel
+    assert (tmp_path / "fgd" / "fgd_ae.pt").exists()
+    assert "path=scan" in printed["eval-time"]
+    d_pose = 3 * TED_JOINTS
+    gen = _pkl(log / "results" / "generated.pkl")
+    assert gen["out"].shape == gen["pose"].shape
+    assert gen["out"].shape[1:] == (34, d_pose) and np.isfinite(gen["out"]).all()
+    samples = log / "results" / "samples"
+    assert len(os.listdir(samples)) == TED_SPLITS["n_test"]
+    s = _pkl(samples / "sample_0.pkl")
+    assert s["out"].shape == s["pose"].shape == (TED_SECONDS * 15, d_pose)
+    assert np.isfinite(s["out"]).all()

@@ -288,3 +288,150 @@ def test_eval_bpd_is_block_invariant(gens):
     other = tgen.eval_bpd(poses, wav, generator=torch.Generator().manual_seed(6))
     assert not np.allclose(other["vb"].numpy(), runs[0]["vb"].numpy())
     assert runs[0]["vb"].shape == (2, 10) and runs[0]["total_bpd"].shape == (2,)
+
+
+# -- a model with no fused kernel: the cross-attention decoder ----------------
+
+CROSS_SEED = 4          # tedexp's pose_seed_len
+
+
+@pytest.fixture(scope="module")
+def cross_gens():
+    """(JAX Generator, port Generator, wav) on a cross_attention model, both
+    built with use_fused=True: each serves through its scan sampler, as the
+    JAX Generator's _fused_enabled chooses by the model."""
+    wav = np.random.default_rng(80).normal(0, 0.3, (2, 16000)).astype(np.float32)
+    cfg, variables = jax_variables("default", n_layers=2, wav=wav, seed=81,
+                                   d_model=32, heads=4,
+                                   decoder_type="cross_attention",
+                                   pose_seed_len=CROSS_SEED)
+    sj, tj = jax_make("linear", 100, "ddim10")
+    sp, tp = make_diffusion("linear", 100, "ddim10")
+    jgen = JaxGenerator(JaxDenoiser(cfg), variables, sj, tj, use_fused=True)
+    tgen = Generator(port_model(cfg, variables), sp, tp, use_fused=True,
+                     device="cpu")
+    return jgen, tgen, wav
+
+
+def test_cross_attention_serves_through_scan(cross_gens):
+    """use_fused=True on a model the kernel does not fuse does not raise:
+    generate_sample takes the scan sampler (and says so), DDIM matches the
+    JAX Generator's scan path; the fused-only entry points refuse."""
+    jgen, tgen, wav = cross_gens
+    assert tgen.use_fused and not tgen.fused
+    noise = np.random.default_rng(82).normal(size=(2, T, D_POSE)).astype(np.float32)
+    ref = jgen.generate_sample(jnp.asarray(wav), D_POSE, T, jax.random.key(0),
+                               noise=jnp.asarray(noise))
+    assert jgen.last_sample_path == "scan"
+    ours = tgen.generate_sample(wav, D_POSE, T, noise=noise)
+    assert tgen.last_sample_path == "scan"
+    assert rel_err(ours.numpy(), np.asarray(ref)) < TOL
+    with pytest.raises(ValueError, match="no fused kernel"):
+        tgen.fused_args(torch.from_numpy(wav), D_POSE, T, torch.from_numpy(noise))
+    mean_ms, _, steps_per_s = tgen.eval_infer_time(wav, D_POSE, T, repetitions=1,
+                                                   warmup=1)
+    assert mean_ms > 0 and steps_per_s > 0 and tgen.last_sample_path == "scan"
+
+
+def test_cross_attention_ddpm_matches_jax_with_injected_noise(cross_gens):
+    jgen, tgen, wav = cross_gens
+    noise = np.random.default_rng(83).normal(size=(2, T, D_POSE)).astype(np.float32)
+    kw = _seed_kw(84)
+    kw["pose_seed_len"] = SEED_LEN
+    key = jax.random.key(85)
+    ref = jgen.generate_sample(jnp.asarray(wav), D_POSE, T, key,
+                               noise=jnp.asarray(noise), sample_alg="ddpm",
+                               **_jnp_kw(kw))
+    assert jgen.last_sample_path == "scan"
+    zs, k = {}, key             # the key reaches ddpm_sample_loop unsplit
+    for i in range(9, -1, -1):
+        k, sub = jax.random.split(k)
+        zs[i] = np.array(jax.random.normal(sub, noise.shape))
+    # z_fn goes with the scan sampler: allowed on this use_fused=True
+    # Generator, whose model takes the scan
+    ours = tgen.generate_sample(wav, D_POSE, T, noise=noise, sample_alg="ddpm",
+                                z_fn=zs.__getitem__, **kw)
+    assert tgen.last_sample_path == "scan"
+    assert rel_err(ours.numpy(), np.asarray(ref)) < TOL
+
+
+def test_cross_attention_sequence_matches_jax(cross_gens):
+    """generate_sequence with the smooth transition and a 4-frame seed, as
+    tedexp sets them (stride 4: 3 windows over 2 s)."""
+    jgen, tgen, _ = cross_gens
+    wav_long = np.random.default_rng(86).normal(0, 0.3, (2, 2 * SR)).astype(np.float32)
+    _, num_div = window_plan(wav_long.shape[1], SR, FPS, T, CROSS_SEED)
+    assert num_div == 3
+    init = np.random.default_rng(87).normal(size=(2, CROSS_SEED, D_POSE)).astype(np.float32)
+    key = jax.random.key(88)
+    kw = dict(smooth_trans=True, trans_factor=0.575)
+    ref = jgen.generate_sequence(jnp.asarray(wav_long), SR, D_POSE, FPS, T,
+                                 CROSS_SEED, key, init_poses=jnp.asarray(init), **kw)
+    assert jgen.last_sample_path == "scan"
+    # the scan path draws a window's noise as the fused prep does: the
+    # window's subkey split once more
+    noises = _jax_window_noise(key, num_div, (2, T, D_POSE))
+    ours = tgen.generate_sequence(wav_long, SR, D_POSE, FPS, T, CROSS_SEED,
+                                  init_poses=init, noise_fn=lambda b0, d: noises[d],
+                                  **kw)
+    assert tgen.last_sample_path == "scan"
+    assert ours.shape == ref.shape == (2, 16, D_POSE)
+    assert rel_err(ours, ref) < TOL
+
+
+def test_cross_attention_eval_bpd_matches(cross_gens):
+    jgen, tgen, wav = cross_gens
+    poses = np.random.default_rng(89).normal(size=(2, T, D_POSE)).astype(np.float32)
+    key = jax.random.key(90)
+    ref = jgen.eval_bpd(jnp.asarray(poses), jnp.asarray(wav), key, t_block=4)
+    ours = tgen.eval_bpd(poses, wav, t_block=4,
+                         noise=_jax_bpd_noise(key, poses.shape))
+    assert set(ours) == set(ref)
+    for k in ref:
+        assert rel_err(ours[k].numpy(), ref[k]) < 5e-5, k
+
+
+def test_oneway_with_use_fused_never_takes_the_scan(gens):
+    """A oneway model with use_fused=True runs the fused path (its plain
+    version on the CPU) on every serving entry point; only use_fused=False
+    gives the scan."""
+    _, tgen, wav = gens
+    assert tgen.fused
+    for alg in ("ddim", "ddpm"):
+        tgen.generate_sample(wav, D_POSE, T, sample_alg=alg,
+                             generator=torch.Generator().manual_seed(1))
+        assert tgen.last_sample_path == "fused"
+    wav_long = np.random.default_rng(91).normal(0, 0.3, (2, 2 * SR)).astype(np.float32)
+    tgen.generate_sequence(wav_long, SR, D_POSE, FPS, T, SEED_LEN,
+                           generator=torch.Generator().manual_seed(2))
+    assert tgen.last_sample_path == "fused"
+    stream = tgen.stream(SR, D_POSE, FPS, T, SEED_LEN,
+                         generator=torch.Generator().manual_seed(3))
+    stream.push(wav_long)
+    stream.flush()
+    assert tgen.last_sample_path == "fused"
+    scan = Generator(tgen.model, tgen.sched, tgen.timestep_map, use_fused=False,
+                     device="cpu")
+    assert not scan.fused
+    scan.generate_sample(wav, D_POSE, T, generator=torch.Generator().manual_seed(1))
+    assert scan.last_sample_path == "scan"
+
+
+def test_cross_attention_stream_equals_sequence(cross_gens):
+    """GestureStream on the scan sampler: pushed in 0.25 s chunks, the
+    output equals generate_sequence on the same noise."""
+    _, tgen, _ = cross_gens
+    wav_long = np.random.default_rng(92).normal(0, 0.3, (2, 2 * SR)).astype(np.float32)
+    init = np.random.default_rng(93).normal(size=(2, CROSS_SEED, D_POSE)).astype(np.float32)
+    noises = [np.random.default_rng(94 + d).normal(size=(2, T, D_POSE)).astype(np.float32)
+              for d in range(3)]
+    kw = dict(init_poses=init, trans_factor=0.575,
+              noise_fn=lambda b0, d: noises[d])
+    offline = tgen.generate_sequence(wav_long, SR, D_POSE, FPS, T, CROSS_SEED, **kw)
+    stream = tgen.stream(SR, D_POSE, FPS, T, CROSS_SEED, max_in_flight=1, **kw)
+    chunks = []
+    for i in range(0, wav_long.shape[1], SR // 4):
+        chunks.extend(stream.push(wav_long[:, i:i + SR // 4]))
+    chunks.extend(stream.flush())
+    assert tgen.last_sample_path == "scan"
+    np.testing.assert_array_equal(np.concatenate(chunks, axis=1), offline)

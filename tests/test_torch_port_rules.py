@@ -105,12 +105,21 @@ def test_trainer_refuses_cpu_fallback(monkeypatch, tmp_path):
 
 
 def test_build_model_rejects_unported_decoders():
+    """Every decoder the JAX factory builds is ported: tedexp's 10-layer
+    cross-attention decoder builds at its widths; a type the JAX factory
+    does not build still raises."""
     from gesture_diffusion_torch.models import build_model
+    from gesture_diffusion_torch.models.decoders import CrossAttention
     from gesture_diffusion_torch.utils import JsonConfig
 
     cfg = JsonConfig(str(REPO / "configs" / "tedexp-ours.json"))
+    model = build_model(126, cfg.Model, device="cpu")
+    assert isinstance(model.pose_decoder, CrossAttention)
+    assert len(model.pose_decoder.layers) == 10 and model.cfg.d_model == 512
+    assert not hasattr(model.pose_decoder.layers[9], "feed_forward_mem")
+    cfg.set("Model.Decoder.type", "transformer")
     with pytest.raises(ValueError, match="Unsupported decoder"):
-        build_model(27, cfg.Model, device="cpu")
+        build_model(126, cfg.Model, device="cpu")
 
 
 def test_beat_config_builds_flagship_on_cpu():

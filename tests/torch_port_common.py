@@ -44,22 +44,35 @@ def _perturb(tree, rng):
     return out
 
 
+def _redraw_zero_kernels(tree, rng):
+    """Every all-zero kernel (the UNet's zero-initialised output convs and
+    projections) redrawn at 1/sqrt(fan_in), so that what it carries is
+    visible to every comparison."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _redraw_zero_kernels(v, rng)
+        elif k == "kernel" and not np.abs(v).max():
+            fan_in = int(np.prod(v.shape[:-1]))
+            tree[k] = rng.normal(0, fan_in ** -0.5, v.shape).astype(np.float32)
+
+
 def jax_variables(model_type: str = "s2g_v2", n_layers: int = 1,
                   wav: "np.ndarray | None" = None, seed: int = 0,
-                  d_model: int = DM, heads: int = HEADS, t: int = T, **cfg_kw):
+                  d_model: int = DM, heads: int = HEADS, t: int = T,
+                  d_pose: int = D_POSE, **cfg_kw):
     """(JAX config, numpy variables) of a small denoiser; ``cfg_kw`` goes
     to the JAX ``DenoiserConfig`` (e.g. ``pose_seed_len``,
-    ``encoder_dtype``)."""
-    cfg = JaxConfig(d_pose=D_POSE, d_model=d_model, heads=heads,
+    ``encoder_dtype``, ``decoder_type`` and its extras)."""
+    cfg = JaxConfig(d_pose=d_pose, d_model=d_model, heads=heads,
                     n_layers=n_layers, model_type=model_type, **cfg_kw)
     wav = seeded_wav(seed) if wav is None else wav
     n = wav.shape[0]
     extra = {}
     if model_type == "inpaint":
-        extra = dict(inpaint_pose=jnp.zeros((n, t, D_POSE)),
+        extra = dict(inpaint_pose=jnp.zeros((n, t, d_pose)),
                      inpaint_mask=jnp.zeros((n, t, 1)))
     variables = JaxDenoiser(cfg).init(
-        jax.random.key(seed), jnp.zeros((n, t, D_POSE)),
+        jax.random.key(seed), jnp.zeros((n, t, d_pose)),
         jnp.zeros((n,), jnp.int32), jnp.asarray(wav), train=False, **extra)
     variables = jax.tree.map(np.asarray, variables)
     rng = np.random.default_rng(seed + 100)
@@ -70,6 +83,8 @@ def jax_variables(model_type: str = "s2g_v2", n_layers: int = 1,
             layer["kernel"] = rng.normal(
                 0, fan_in ** -0.5, layer["kernel"].shape).astype(np.float32)
         assert all(np.abs(l["kernel"]).max() > 0 for l in proj.values())
+    if cfg.decoder_type == "unet_attention":
+        _redraw_zero_kernels(variables["params"]["decoder"], rng)
     return cfg, _perturb(variables, rng)
 
 
@@ -88,7 +103,11 @@ def port_model(cfg, variables) -> GestureDenoiser:
         d_pose=cfg.d_pose, d_model=cfg.d_model, heads=cfg.heads,
         n_layers=cfg.n_layers, model_type=cfg.model_type,
         dropout=cfg.dropout, pose_seed_len=cfg.pose_seed_len,
-        encoder_dtype=cfg.encoder_dtype))
+        encoder_dtype=cfg.encoder_dtype, decoder_type=cfg.decoder_type,
+        graph_layout=cfg.graph_layout, graph_strategy=cfg.graph_strategy,
+        channel_mult=tuple(cfg.channel_mult),
+        attention_resolutions=tuple(cfg.attention_resolutions),
+        window_len=cfg.window_len))
     model.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
     return model.eval()
 

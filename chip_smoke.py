@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``gesture_diffusion_torch``) on one
 NVIDIA GPU: the BEAT serving path end to end, at full width, for all three
-model types and both sampling algorithms; training and the phase CLI; the
+model types and both sampling algorithms; training and the phase CLI; a
+user's run from a BEAT corpus tree to BVH files and video; the
 TED-Expressive configuration and the other decoders, which no fused
 kernel serves.
 
@@ -54,7 +55,21 @@ Phases (any failure raises and the script exits non-zero):
      the CLI's shapes on the trained weights, 1000 steps, at the planned
      and every forced cluster size: eval's batch of 20 test windows and
      gen's first window of the 2 test sequences with the x0 blend;
-  8. ``configs/tedexp-ours.json`` at full width (``tedexp_paths``; the
+  8. the corpus ends of a user's run (``corpus_paths``, ``[corpus]``
+     lines), on the card: a synthetic BEAT tree at the corpus's sizes
+     (10 usable recordings of 70 s, the 75-joint skeleton at 120 fps as
+     17 MB BVHs, int16 wavs at 48 kHz, word TextGrids, plus the unsyncable
+     recording and one without a TextGrid, both skipped and logged), then
+     the CLI's prep, data, train (32 steps at batch 30) and gen on
+     ``configs/beat-ours.json`` at full width with 60 s samples: each
+     phase's wall seconds, 8/1/1 samples, the artifacts, gen's fused
+     launches; the native BVH parser against its numpy route (equal, MB/s
+     of each) and prep's parts on one recording; the kernel against its
+     plain version at gen's shapes on the trained weights; then
+     ``sample2bvh_batch`` (every predicted joint's rotation columns parse
+     back equal to the sample), ``pose_to_positions`` and a raw AVI with
+     the speech (no matplotlib or Pillow on this path);
+  9. ``configs/tedexp-ours.json`` at full width (``tedexp_paths``; the
      10-layer cross-attention decoder, d_model 512, d_pose 126, 34-frame
      windows at 15 fps), which no fused kernel serves: ``generate_sample``
      at batches 1 and 32 and ``generate_sequence`` over 2 x 10 s on the
@@ -64,14 +79,15 @@ Phases (any failure raises and the script exits non-zero):
      bars); the phase CLI on ``Data.synthetic`` (42 joints in euler, 8/4/4
      samples of 20 s, 6 train steps, the schedule respaced to ddim50) with
      eval's FGD, latent distance and diversity; 0 fused-kernel launches;
-  9. the GCN and UNet decoders at smoke widths (``decoder_paths``; no
+  10. the GCN and UNet decoders at smoke widths (``decoder_paths``; no
      shipped configuration uses them): one forward, one train step and one
      50-step ``generate_sample`` each, on the card against the CPU;
-  10. print the kernels' JSON line and, last, the device line.
+  11. print the kernels' JSON line and, last, the device line.
 
-    python3 chip_smoke.py --only tedexp decoders
+    python3 chip_smoke.py --only corpus tedexp decoders
 
-runs phases 8 and 9 alone (no build, no result line), to try them.
+runs phases 8, 9 and 10 alone (no kernel phases, no result line), to try
+them.
 
 Needs CUDA; imports nothing of JAX.
 """
@@ -201,6 +217,54 @@ def host_ms(fn, reps: int = 3, warmup: int = 1):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.mean(times)), float(np.std(times)), out
+
+
+def make_check(worst: dict, worst_c: dict):
+    """Phase 3's comparison of the fused kernel with its plain version on
+    the same arguments, at the planned and at every forced cluster size:
+    ``check(variant, label, args, scan=None, steps=...)`` logs the errors,
+    folds them into ``worst`` (variant -> [relative, absolute]) and
+    ``worst_c`` (cluster size -> relative), and raises above KERNEL_BAR.
+    Its launches are comparisons: callers read the main path's launch count
+    before calling it."""
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+
+    def check(variant, label, args, scan=None, steps="ddim50"):
+        with torch.no_grad():
+            k = fs.fused_ddim_sample(**args)
+            planned = fs.last_cluster
+            forced = {c: fs._fused_ddim_cuda(**args, cluster=c)
+                      for c in fs.CLUSTER_SIZES}
+            torch.cuda.synchronize()
+            p = fs.fused_ddim_sample_plain(**args)
+        kk, pp = k[..., :D_POSE], p[..., :D_POSE]
+        r, a = rel(kk, pp), float((kk - pp).abs().max())
+        per_c = {c: rel(kc[..., :D_POSE], pp) for c, kc in forced.items()}
+        w = worst.setdefault(variant, [0.0, 0.0])
+        w[0], w[1] = max(w[0], r, *per_c.values()), max(
+            w[1], a, *(float((kc[..., :D_POSE] - pp).abs().max())
+                       for kc in forced.values()))
+        for c, rc in per_c.items():
+            worst_c[c] = max(worst_c.get(c, 0.0), rc)
+        extra = ""
+        if scan is not None:
+            with torch.no_grad():
+                p32 = fs.fused_ddim_sample_plain(
+                    **{**args, "compute_dtype": torch.float32})
+            extra = (f"; floor plain-bf16 vs plain-f32-operands "
+                     f"{rel(pp, p32[..., :D_POSE]):.3e}; kernel vs fp32 scan "
+                     f"{rel(kk, scan):.3e}")
+        log(f"[kernel-vs-plain] {steps} {label}: max|d|/max|ref| {r:.3e} at "
+            f"the planned C={planned} (max|d| {a:.3e}, max|ref| "
+            f"{float(pp.abs().max()):.3e}); forced C "
+            + ", ".join(f"{c}: {rc:.3e}" for c, rc in per_c.items()) + extra)
+        finite = all(bool(torch.isfinite(x).all()) for x in (k, *forced.values()))
+        if not finite or max(r, *per_c.values()) > KERNEL_BAR:
+            raise AssertionError(
+                f"fused kernel off its plain version: {r:.3e} (forced C: "
+                f"{per_c}) > bar {KERNEL_BAR}")
+
+    return check
 
 
 def nvidia_smi() -> str:
@@ -691,7 +755,339 @@ def cli_paths(smi, check) -> int:
     return sum(served.values())
 
 
-# -- phase 8: TED-Expressive ---------------------------------------------------
+# -- phase 8: the corpus ends of a user's run ------------------------------------
+# A synthetic BEAT tree at the corpus's sizes: 10 usable recordings of 70 s
+# (one name carries a begin-time offset), the unsyncable one and one without
+# a TextGrid; each BVH holds the 75-joint skeleton at 120 fps as %.4f text,
+# about 17 MB, each wav int16 at 48 kHz (resampled to Data.wav_sr by prep)
+CORPUS_SECONDS, CORPUS_WAV_SR = 70, 48000
+CORPUS_USABLE = [f"1_wayne_0_{i}_{i}" for i in range(1, 10)] + ["1_wayne_0_9_16"]
+CORPUS_UNSYNCABLE, CORPUS_NO_TEXTGRID = "1_wayne_1_1_2", "1_wayne_0_30_30"
+CORPUS_SPLITS = {"train": 8, "val": 1, "test": 1}
+# the one val sample holds 30 windows, and the Trainer drops a short batch
+# (as the JAX trainer does): at the config's batch of 64 it would validate
+# on nothing
+CORPUS_BATCH, CORPUS_STEPS = 30, 32     # two epochs of 16 steps
+CORPUS_WORDS = ("so", "the", "gesture", "we", "you", "really", "think", "about",
+                "this", "going", "right", "hand", "here", "that", "know", "yeah")
+CORPUS_VIDEO_FRAMES = 20
+
+
+def textgrid_text(words, seconds: float) -> str:
+    """A long-format Praat TextGrid, one word tier: ``words`` as (xmin,
+    xmax, mark), the gaps between them as empty intervals."""
+    ivs, t = [], 0.0
+    for xmin, xmax, mark in words:
+        if xmin > t:
+            ivs.append((t, xmin, ""))
+        ivs.append((xmin, xmax, mark))
+        t = xmax
+    if t < seconds:
+        ivs.append((t, seconds, ""))
+    body = "".join(
+        f"        intervals [{i + 1}]:\n            xmin = {a}\n"
+        f"            xmax = {b}\n            text = \"{m}\"\n"
+        for i, (a, b, m) in enumerate(ivs))
+    return ('File type = "ooTextFile"\nObject class = "TextGrid"\n\n'
+            f"xmin = 0\nxmax = {seconds}\ntiers? <exists>\nsize = 1\nitem []:\n"
+            '    item [1]:\n        class = "IntervalTier"\n        name = "words"\n'
+            f"        xmin = 0\n        xmax = {seconds}\n"
+            f"        intervals: size = {len(ivs)}\n" + body)
+
+
+def corpus_header():
+    """The HIERARCHY text of ``tests/golden/synth_fullbody.bvh`` (75
+    joints) and its number of channels."""
+    with open(os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh")) as f:
+        golden = f.read()
+    header = golden[:golden.index("MOTION")]
+    return header, sum(int(part.split()[0]) for part in header.split("CHANNELS")[1:])
+
+
+def write_corpus(src: str) -> int:
+    """The synthetic BEAT recordings of speaker 1 under ``src``; returns
+    the bytes of BVH text written."""
+    from scipy.io import wavfile
+
+    header, n_channels = corpus_header()
+    n_frames = CORPUS_SECONDS * 120
+    os.makedirs(src)
+    bvh_bytes = 0
+    names = CORPUS_USABLE + [CORPUS_UNSYNCABLE, CORPUS_NO_TEXTGRID]
+    for k, name in enumerate(names):
+        rng = np.random.default_rng(100 + k)
+        t = np.arange(n_frames)[:, None] / 120.0
+        motion = (rng.uniform(-30, 30, n_channels)
+                  + 15 * np.sin(2 * np.pi * rng.uniform(0.2, 1.5, n_channels) * t
+                                + rng.uniform(0, 6, n_channels))
+                  + rng.normal(0, 1, (n_frames, n_channels)))
+        row = " ".join(["%.4f"] * n_channels) + "\n"
+        text = (header + f"MOTION\nFrames: {n_frames}\nFrame Time: 0.008333\n"
+                + "".join(row % tuple(r) for r in motion.tolist()))
+        base = os.path.join(src, name)
+        with open(base + ".bvh", "w") as f:
+            f.write(text)
+        bvh_bytes += len(text)
+        n_wav = CORPUS_SECONDS * CORPUS_WAV_SR
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * 4.0 * np.arange(n_wav) / CORPUS_WAV_SR)
+        wav = np.clip(0.3 * env * rng.normal(size=n_wav), -1, 1)
+        wavfile.write(base + ".wav", CORPUS_WAV_SR, (wav * 32767).astype(np.int16))
+        if name != CORPUS_NO_TEXTGRID:
+            starts = np.arange(1.0, CORPUS_SECONDS - 1.0, 0.6)
+            words = [(round(float(a), 3), round(float(a) + 0.45, 3),
+                      CORPUS_WORDS[rng.integers(len(CORPUS_WORDS))]) for a in starts]
+            with open(base + ".TextGrid", "w") as f:
+                f.write(textgrid_text(words, float(CORPUS_SECONDS)))
+    return bvh_bytes
+
+
+def corpus_paths(smi, check) -> int:
+    """Phase 8: a user's run from the corpus to BVH files and video, on the
+    card, through the port: a synthetic BEAT tree at the corpus's sizes;
+    the CLI's prep -> data -> train -> gen (no --device) on
+    ``configs/beat-ours.json`` at full width (41 joints, 60 s samples);
+    the native BVH parser against its numpy route; the kernel at gen's
+    shapes on the trained weights through ``check``; then
+    ``sample2bvh_batch`` with an exact round trip, forward kinematics and
+    a raw AVI with the speech.  Returns gen's fused-kernel launches."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    from gesture_diffusion_torch import cli, native
+    from gesture_diffusion_torch.data import beat
+    from gesture_diffusion_torch.data.bvh import parse_bvh
+    from gesture_diffusion_torch.data.pipeline import load_from_bvh
+    from gesture_diffusion_torch.data.skeleton import Skeleton
+    from gesture_diffusion_torch.export import (read_avi_structure,
+                                                sample2bvh_batch, write_avi)
+    from gesture_diffusion_torch.export.vis_skeleton import pose_to_positions
+    from gesture_diffusion_torch.generation import make_trans_ramp
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.training import steps_per_epoch
+    from gesture_diffusion_torch.utils import JsonConfig
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_")
+    root = tmp.name
+    src = os.path.join(root, "BEAT", "1")
+    t0 = time.perf_counter()
+    bvh_bytes = write_corpus(src)
+    log(f"[corpus] wrote {len(CORPUS_USABLE) + 2} recordings of {CORPUS_SECONDS} s "
+        f"({bvh_bytes / 1e6:.1f} MB of BVH text, wavs int16 at {CORPUS_WAV_SR} Hz) "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    with open(os.path.join(REPO, "configs", "beat-ours.json")) as f:
+        raw = json.load(f)
+    data = raw["Data"]
+    data.update({
+        "src_dir_path": os.path.join(root, "BEAT"),
+        "spt_dir_path": os.path.join(root, "spt"),
+        "dst_dir_path": os.path.join(root, "dst"),
+        "hierarchy_path": os.path.join(root, "spt", "hierarchy_upper.txt")})
+    raw["Train"].update({"batch_size": CORPUS_BATCH,
+                         "max_training_steps": str(CORPUS_STEPS),
+                         "early_stop_threshold_in_step": str(CORPUS_STEPS)})
+    raw["Meta"] = {"project": "chip-smoke", "log_dir": os.path.join(root, "log"),
+                   "name": "corpus"}
+    cfg_path = os.path.join(root, "beat-ours.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    sr, fps, seconds = data["wav_sr"], data["pose_fps"], data["sample_duration"]
+    n_pose, n_wav = int(seconds * fps), int(seconds * sr)
+
+    walls, printed, launched = {}, {}, {}
+    for phase in ("prep", "data", "train", "gen"):
+        out = io.StringIO()
+        fs.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--phase", phase, "--config", cfg_path, "--seed", "0"])
+        torch.cuda.synchronize()
+        walls[phase] = time.perf_counter() - t0
+        launched[phase] = fs.launches
+        printed[phase] = out.getvalue()
+        for line in printed[phase].splitlines():
+            if line.startswith(("[Error]", "[Info] Skipped", "[Info] Epoch",
+                                "[Info] Hierarchy")):
+                log(f"[corpus]   {line}")
+        log(f"[corpus] --phase {phase}: {walls[phase]:.2f} s wall, fused kernel "
+            f"launches +{launched[phase]} [{smi}]")
+
+    # prep: the three splits, the vocab, the template, the two skipped
+    def load(*parts):
+        with open(os.path.join(root, *parts), "rb") as f:
+            return pickle.load(f)
+
+    counts = {}
+    for split in ("train", "val", "test"):
+        d = load("spt", f"{split}_samples.pkl")
+        n = counts[split] = len(d["hid"])
+        want = {"hid": (n,), "pose": (n, n_pose, D_POSE), "wav": (n, n_wav),
+                "word_id": (n, n_pose)}
+        got = {k: tuple(v.shape) for k, v in d.items()}
+        if (got != want or not np.isfinite(d["pose"]).all()
+                or d["word_id"].max() <= 3):
+            raise AssertionError(f"{split}_samples.pkl: {got}, want {want} with "
+                                 "finite poses and indexed words")
+    vocab = load("spt", "vocab.pkl")
+    hierarchy = parse_bvh(data["hierarchy_path"])
+    with open(os.path.join(root, "spt", "split_dataset.log")) as f:
+        split_log = f.read()
+    skipped = {
+        CORPUS_UNSYNCABLE: f"[Info] Skipped (unsyncable): {os.path.join(src, CORPUS_UNSYNCABLE)}.bvh",
+        CORPUS_NO_TEXTGRID: "[Error] TextGrid file not found for {0} {0}".format(
+            os.path.join(src, CORPUS_NO_TEXTGRID) + ".bvh")}
+    log(f"[corpus] prep: samples per split {counts} (want {CORPUS_SPLITS}), "
+        f"{vocab.n_words} words in vocab.pkl, hierarchy_upper.txt of "
+        f"{sum(not j.is_end_site for j in hierarchy.joints.values())} joints, "
+        f"{split_log.count('[Info] Processed')} recordings processed")
+    if (counts != CORPUS_SPLITS or vocab.n_words <= len(CORPUS_WORDS)
+            or not set(data["joints"]) <= set(hierarchy.joints)
+            or split_log.count("[Info] Processed") != len(CORPUS_USABLE)
+            or not all(line in split_log.splitlines() for line in skipped.values())):
+        raise AssertionError("prep wrote the wrong splits, vocab, template or log")
+
+    # data and train at the corpus's sizes
+    n_train = counts["train"] * -(-n_pose // data["pose_stride_len"])
+    per_epoch = steps_per_epoch(n_train, CORPUS_BATCH)
+    steps = per_epoch * max(1, round(CORPUS_STEPS / per_epoch))
+    log_dir = os.path.join(root, "log", "corpus")
+    with open(os.path.join(log_dir, "chkpts", "chkpt_seed0.pt.meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(log_dir, f"metrics_{meta['run_id']}.jsonl")) as f:
+        val = [json.loads(line)["val/loss"] for line in f if "val/loss" in line]
+    train_windows = load("dst", "train_data.pkl")["pose"].shape
+    log(f"[corpus] data: train windows {train_windows}; train: {meta['train_step']} "
+        f"steps at batch {CORPUS_BATCH}, val/loss {['%.4f' % v for v in val]}")
+    if (train_windows != (n_train, WINDOW, D_POSE) or meta["train_step"] != steps
+            or not val or not np.isfinite(val).all()):
+        raise AssertionError("the data or train phase did not run at the corpus's sizes")
+
+    # gen: the kernel served every window of the test sequence
+    samples_dir = os.path.join(log_dir, "results", "samples")
+    sample = load("log", "corpus", "results", "samples", "sample_0.pkl")
+    if (sorted(os.listdir(samples_dir)) != ["sample_0.pkl"]
+            or sample["out"].shape != (n_pose, D_POSE)
+            or not np.isfinite(sample["out"]).all()
+            or np.abs(sample["out"]).max() > 180.0 + 1e-3):
+        raise AssertionError("gen wrote no sound sample for the test sequence")
+    busy = {p: launched[p] for p in ("prep", "data", "train")}
+    if launched["gen"] < 1 or any(busy.values()):
+        raise AssertionError(f"fused launches: gen {launched['gen']}, others {busy}")
+    log(f"[corpus] gen: sample_0.pkl out {sample['out'].shape}, fused kernel "
+        f"launches {launched['gen']} (prep/data/train {busy})")
+    log("[corpus] phases, wall s: " + ", ".join(
+        f"{p} {w:.2f}" for p, w in walls.items())
+        + f"; all {sum(walls.values()):.2f} [{smi}]")
+
+    # the native parser against its numpy route on one corpus BVH, and
+    # where prep's time goes on one recording
+    first = os.path.join(src, CORPUS_USABLE[0])
+    with open(first + ".bvh", "rb") as f:
+        text = f.read()
+    block = text[text.index(b"Frame Time:"):].split(b"\n", 1)[1]
+    want = CORPUS_SECONDS * 120 * corpus_header()[1]
+    rates, parsed = {}, {}
+    for name, fn in (("native", native.parse_floats),
+                     ("numpy", native.parse_floats_plain)):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            parsed[name] = fn(block, want)
+            best = min(best, time.perf_counter() - t0)
+        rates[name] = (len(block) / 1e6 / best, best)
+    same = (parsed["native"].size == want
+            and np.array_equal(parsed["native"], parsed["numpy"]))
+    parts = {}
+    for name, fn in (("load_from_bvh", lambda: load_from_bvh(first + ".bvh", data["joints"], fps)),
+                     ("load_wav", lambda: beat.load_wav(first + ".wav", sr)),
+                     ("split", lambda: beat.stratified_train_test_split(
+                         np.arange(10), 0.2, np.ones(10), 0))):
+        t0 = time.perf_counter()
+        fn()
+        parts[name] = time.perf_counter() - t0
+    log(f"[corpus] BVH MOTION block parse ({len(block) / 1e6:.2f} MB, {want} floats): "
+        f"native {rates['native'][0]:.1f} MB/s ({rates['native'][1] * 1e3:.1f} ms), "
+        f"numpy {rates['numpy'][0]:.1f} MB/s ({rates['numpy'][1] * 1e3:.1f} ms); "
+        f"equal: {same}. One recording in prep: load_from_bvh "
+        f"{parts['load_from_bvh'] * 1e3:.1f} ms, load_wav (read, resample "
+        f"{CORPUS_WAV_SR} -> {sr}) {parts['load_wav'] * 1e3:.1f} ms; the split "
+        f"{parts['split'] * 1e3:.3f} ms [{smi}]")
+    if not same:
+        raise AssertionError("the native BVH parser disagrees with its numpy route")
+
+    # the kernel at gen's shapes on the trained weights: the first window
+    # of the test sequence, x0 blend on its seed poses
+    config = JsonConfig(cfg_path)
+    config.set("Meta.seed", 0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, test_ds, trained = cli.load_eval_objs(config)
+    dev = trained.device
+    seqs = test_ds.get_seqs()
+    n_gen = seqs["pose"].shape[0]
+    ip = torch.zeros(n_gen, WINDOW, D_POSE, device=dev)
+    ip[:, :SEED_LEN] = torch.from_numpy(np.asarray(seqs["pose"])[:, :SEED_LEN]).to(dev)
+    im = torch.zeros(n_gen, WINDOW, 1, device=dev)
+    im[:, :SEED_LEN] = 1.0
+    ramp = torch.from_numpy(make_trans_ramp(TRANS_FACTOR, SEED_LEN, WINDOW)).to(dev)
+    draw = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        gen_args = trained.fused_args(
+            torch.from_numpy(np.asarray(seqs["wav"])[:, :WINDOW * SR // FPS]).to(dev),
+            D_POSE, WINDOW, torch.randn(n_gen, WINDOW, D_POSE, generator=draw, device=dev),
+            ip, im, ramp)
+    check("ddim", f"batch {n_gen:2d} x0-blend (corpus gen's first window, trained "
+          "weights)", gen_args, steps=f"[corpus] {trained.num_steps} steps")
+
+    # export: BVH files that parse back to the sample's euler poses exactly,
+    # forward kinematics, and a raw AVI with the speech
+    t0 = time.perf_counter()
+    written = sample2bvh_batch(samples_dir, os.path.join(root, "bvh"),
+                               data["hierarchy_path"], wav_sr=sr,
+                               joint_names=data["joints"])
+    export_s = time.perf_counter() - t0
+    exact = len(written) == 3
+    for path in written:
+        if not path.endswith(".bvh"):
+            continue
+        back = parse_bvh(path)
+        pose = sample["pose" if path.endswith("-gt.bvh") else "out"]
+        for k, joint in enumerate(data["joints"]):
+            for axis, c in enumerate("XYZ"):
+                col = back.column_names.index(f"{joint}_{c}rotation")
+                exact &= np.array_equal(back.values[:, col], pose[:, 3 * k + axis])
+    skeleton = Skeleton.from_hierarchy_file(data["hierarchy_path"])
+    positions = pose_to_positions(skeleton, sample["out"], data["joints"])
+    # frames drawn in numpy (matplotlib is not needed): the joints of the
+    # first second projected on x/y
+    xy = positions[:CORPUS_VIDEO_FRAMES, :, :2]
+    lim = np.abs(positions[..., :2]).max() + 1e-6
+    frames = []
+    for f in xy:
+        img = np.zeros((96, 128, 3), np.uint8)
+        px = np.clip(((f / lim) * [60, -44] + [64, 48]).astype(int), 0, [127, 95])
+        img[px[:, 1], px[:, 0]] = 255
+        frames.append(img)
+    avi_path = write_avi(os.path.join(root, "sample_0.avi"), frames, fps=fps,
+                         audio=sample["wav"][:CORPUS_VIDEO_FRAMES * sr // fps],
+                         sample_rate=sr, codec="raw")
+    info = read_avi_structure(avi_path)
+    log(f"[corpus] export: {len(written)} files in {export_s:.2f} s, BVH round trip "
+        f"exact: {exact}; pose_to_positions {positions.shape}; raw AVI "
+        f"{info['video_frames']} frames, {info['audio_bytes']} audio bytes")
+    if (not exact or positions.shape != (n_pose, skeleton.n_joints, 3)
+            or not np.isfinite(positions).all() or info["video_frames"] != len(frames)
+            or info["streams"] != 2
+            or info["audio_bytes"] != 2 * CORPUS_VIDEO_FRAMES * sr // fps
+            or len({fr.tobytes() for fr in frames}) < 2):
+        raise AssertionError("export: BVH round trip, kinematics or AVI not right")
+    tmp.cleanup()
+    return launched["gen"]
+
+
+# -- phase 9: TED-Expressive ---------------------------------------------------
 TED_BATCH, TED_TRAIN_BATCHES = 32, 4
 # the card against the CPU, TF32 off: one denoise call on one speech memory
 # (the products sum in other orders through 10 layers) and a 50-step DDIM
@@ -715,7 +1111,7 @@ FGD_KEYS = ("fgd", "feat_dist", "diversity")
 
 
 def tedexp_paths(smi, dev) -> dict:
-    """Phase 8: ``configs/tedexp-ours.json`` at full width (the 10-layer
+    """Phase 9: ``configs/tedexp-ours.json`` at full width (the 10-layer
     cross-attention decoder, d_model 512, 8 heads, d_pose 126 (42 joints in
     euler), 34-frame windows at 15 fps, 1000 steps) with random seeded
     weights, through the port's entry points: serving (``generate_sample``
@@ -957,7 +1353,7 @@ def tedexp_paths(smi, dev) -> dict:
     return summary
 
 
-# -- phase 9: the GCN and UNet decoders at smoke widths -----------------------
+# -- phase 10: the GCN and UNet decoders at smoke widths ----------------------
 # no shipped configuration uses either: beat-ours (s2g_v2, 1000 steps) with
 # its decoder replaced
 DECODER_SMOKE = {
@@ -972,7 +1368,7 @@ DECODER_BAR = 1e-4       # the card against the CPU, TF32 off, of max |ref|
 
 
 def decoder_paths(smi, dev) -> dict:
-    """Phase 9: for each decoder, one forward, one train step and one
+    """Phase 10: for each decoder, one forward, one train step and one
     50-step ``generate_sample`` on the card against the CPU (TF32 off, one
     mel), at smoke widths; all finite and within DECODER_BAR.  Returns the
     numbers; raises on any failed check."""
@@ -1051,9 +1447,10 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", nargs="+", choices=("tedexp", "decoders"),
-                        help="run only these phases (no build, no kernel "
-                        "phases) and print no result line: for trying a phase")
+    parser.add_argument("--only", nargs="+", choices=("corpus", "tedexp", "decoders"),
+                        help="run only these phases (no kernel phases; "
+                        "corpus builds the kernel for its gen) and print no "
+                        "result line: for trying a phase")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1078,7 +1475,10 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         for name in args.only:
             t0 = time.perf_counter()
-            {"tedexp": tedexp_paths, "decoders": decoder_paths}[name](smi, dev)
+            if name == "corpus":
+                corpus_paths(smi, make_check({}, {}))
+            else:
+                {"tedexp": tedexp_paths, "decoders": decoder_paths}[name](smi, dev)
             log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
         log(f"[done] {time.perf_counter() - t_start:.1f} s (--only: no result line)")
         return 0
@@ -1161,40 +1561,7 @@ def main(argv=None) -> int:
     worst = {}               # variant -> [worst relative, worst absolute]
     worst_c = {}             # cluster size -> worst relative
 
-    def check(variant, label, args, scan=None, steps="ddim50"):
-        with torch.no_grad():
-            k = fs.fused_ddim_sample(**args)
-            planned = fs.last_cluster
-            forced = {c: fs._fused_ddim_cuda(**args, cluster=c)
-                      for c in fs.CLUSTER_SIZES}
-            torch.cuda.synchronize()
-            p = fs.fused_ddim_sample_plain(**args)
-        kk, pp = k[..., :D_POSE], p[..., :D_POSE]
-        r, a = rel(kk, pp), float((kk - pp).abs().max())
-        per_c = {c: rel(kc[..., :D_POSE], pp) for c, kc in forced.items()}
-        w = worst.setdefault(variant, [0.0, 0.0])
-        w[0], w[1] = max(w[0], r, *per_c.values()), max(
-            w[1], a, *(float((kc[..., :D_POSE] - pp).abs().max())
-                       for kc in forced.values()))
-        for c, rc in per_c.items():
-            worst_c[c] = max(worst_c.get(c, 0.0), rc)
-        extra = ""
-        if scan is not None:
-            with torch.no_grad():
-                p32 = fs.fused_ddim_sample_plain(
-                    **{**args, "compute_dtype": torch.float32})
-            extra = (f"; floor plain-bf16 vs plain-f32-operands "
-                     f"{rel(pp, p32[..., :D_POSE]):.3e}; kernel vs fp32 scan "
-                     f"{rel(kk, scan):.3e}")
-        log(f"[kernel-vs-plain] {steps} {label}: max|d|/max|ref| {r:.3e} at "
-            f"the planned C={planned} (max|d| {a:.3e}, max|ref| "
-            f"{float(pp.abs().max()):.3e}); forced C "
-            + ", ".join(f"{c}: {rc:.3e}" for c, rc in per_c.items()) + extra)
-        finite = all(bool(torch.isfinite(x).all()) for x in (k, *forced.values()))
-        if not finite or max(r, *per_c.values()) > KERNEL_BAR:
-            raise AssertionError(
-                f"fused kernel off its plain version: {r:.3e} (forced C: "
-                f"{per_c}) > bar {KERNEL_BAR}")
+    check = make_check(worst, worst_c)
 
     for n in (1, 3, 64):
         for blend in (False, True):
@@ -1431,7 +1798,12 @@ def main(argv=None) -> int:
     launches["ddim"] += cli_paths(smi, check)
     log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 8: TED-Expressive; phase 9: the GCN and UNet decoders ---------
+    # -- phase 8: the corpus ends of a user's run -----------------------------
+    t0 = time.perf_counter()
+    launches["ddim"] += corpus_paths(smi, check)
+    log(f"[corpus] phase took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 9: TED-Expressive; phase 10: the GCN and UNet decoders --------
     t0 = time.perf_counter()
     tedexp_paths(smi, dev)
     log(f"[tedexp] phase took {time.perf_counter() - t0:.1f} s")

@@ -11,15 +11,15 @@ under ``Data.dst_dir_path``, ``{log_dir}/{name}/chkpts``,
 ``results/samples/sample_{i}.pkl``).  ``--device`` plays the part that
 ``JAX_PLATFORMS`` plays for the JAX CLI: the phases run on the card unless
 ``--device cpu`` asks for the CPU, and without CUDA the CLI raises.
+``prep`` reads the BEAT corpus under ``Data.src_dir_path``
+(``data/beat.py``, the JAX CLI's samples pickles array for array, without
+sklearn) or writes ``Data.synthetic`` samples, as the JAX CLI does.
 
 Differences by design:
   * checkpoints are torch files (``chkpt_seed{seed}.pt``), so a JAX run's
     msgpack checkpoint does not load here, nor the other way round;
   * bpd, sampling and sequence noise come from ``torch.Generator``s seeded
     from ``Meta.seed`` (``utils/rng.py``), not from ``jax.random``;
-  * only the synthetic route of ``prep`` is ported; BEAT corpus
-    preprocessing stays with the JAX CLI, whose samples pickles this CLI
-    reads;
   * settings the port cannot honour raise (``refuse_unported``) in the
     phases that build a model: train, eval, eval-time and gen;
   * the FGD embedding net (``Eval.fgd``) is a torch file beside the
@@ -36,6 +36,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
+from gesture_diffusion_torch.data.beat import preprocess_data
 from gesture_diffusion_torch.data.bvh import (ancestor_closure, hierarchy_text,
                                               parse_bvh, prune_hierarchy)
 from gesture_diffusion_torch.data.pipeline import load_processed_datasets
@@ -146,15 +147,21 @@ def ensure_hierarchy_template(config):
 
 
 def preprocess(config, device=None):
-    """The synthetic samples.  BEAT corpus preprocessing is not ported
-    (ROADMAP queue 1 item 2); its pickles, written by the JAX CLI's prep
-    phase, are what this CLI's data phase reads."""
-    if not config.Data.get("synthetic"):
-        raise NotImplementedError(
-            "prep from the BEAT corpus (data/beat.py) is not ported yet "
-            "(ROADMAP queue 1 item 2): set Data.synthetic, or write the "
-            "samples pickles with the JAX CLI (python main.py --phase prep)")
-    make_synthetic_samples(config)
+    """The samples pickles: synthetic ones for ``Data.synthetic``, else the
+    BEAT corpus under ``Data.src_dir_path`` through ``preprocess_data``,
+    then the hierarchy template derived from its first BVH."""
+    if config.Data.get("synthetic"):
+        make_synthetic_samples(config)
+        return
+    preprocess_data(
+        src_dir_path=config.Data.src_dir_path,
+        human_ids=config.Data.human_ids,
+        pose_fps=config.Data.pose_fps,
+        wav_sr=config.Data.wav_sr,
+        sample_duration=config.Data.sample_duration,
+        spt_dir_path=config.Data.spt_dir_path,
+        joints=config.Data.get("joints"))
+    ensure_hierarchy_template(config)
 
 
 def load_datasets(config, device=None):

@@ -4,9 +4,9 @@ A copy of ``gesture_diffusion_tpu/data/bvh.py`` (numpy only), kept here so
 the port never imports the JAX package: one linear tokenizer, a flat joint
 table in file order, and motion frames as a single (T, C) float array with
 "{joint}_{channel}" column names.  The writer regenerates the hierarchy
-text from the joint table.  The MOTION block's floats are parsed by numpy
-(``_parse_floats``); the JAX package's native strtod parser is a host
-speed-up for 16 MB corpus files that the port has not taken over.
+text from the joint table.  The MOTION block's floats are parsed by the
+port's native strtod parser (``native.parse_floats``, built with g++ at
+first use), as the JAX package parses them.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import re
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+
+from ..native import parse_floats
 
 _TOKEN = re.compile(r"[^\s{}:]+|\{|\}")  # ':' dropped ("Frames:" -> "Frames")
 
@@ -75,8 +77,8 @@ def parse_bvh(path_or_text: str, is_text: bool = False) -> BvhData:
         with open(path_or_text, "rb") as f:
             raw = f.read()
     # split off the MOTION block BEFORE tokenizing: a 60 s recording
-    # carries ~1.6M float tokens, which go to numpy in bulk
-    # (``_parse_floats``) instead of through the header's regex tokenizer
+    # carries ~1.6M float tokens, which go to the native parser in bulk
+    # instead of through the header's regex tokenizer
     m_kw = re.search(rb"(?m)^[ \t]*(MOTION)[ \t]*\r?$", raw)
     # standalone-line match first: a joint NAME containing "MOTION" must
     # not truncate the hierarchy; substring fallback keeps accepting
@@ -191,7 +193,7 @@ def parse_bvh(path_or_text: str, is_text: bool = False) -> BvhData:
         n_frames = int(hm.group(1))
         framerate = float(hm.group(2))
         want = n_frames * len(channel_names)
-        flat = _parse_floats(raw[m_idx + hm.end():], want)
+        flat = parse_floats(raw[m_idx + hm.end():], want)
         if flat.size != want:
             raise ValueError(
                 f"BVH motion data truncated: expected {n_frames}x{len(channel_names)}, "
@@ -199,27 +201,6 @@ def parse_bvh(path_or_text: str, is_text: bool = False) -> BvhData:
         values = flat.reshape(n_frames, len(channel_names))
 
     return BvhData(joints, root_name, framerate, values, channel_names)
-
-
-def _parse_floats(data: bytes, expected: int) -> np.ndarray:
-    """Up to ``expected`` whitespace-separated floats from ``data`` as
-    float64, stopping at the first non-numeric token (the BVH motion-block
-    grammar); the token list is cut to ``expected`` before converting."""
-    if expected == 0:
-        return np.zeros(0)
-    toks = data.split()[:expected]
-    try:
-        return np.asarray(toks, dtype=np.float64)
-    except ValueError:
-        out = np.empty(len(toks), np.float64)
-        n = 0
-        for tok in toks:
-            try:
-                out[n] = float(tok)
-            except ValueError:
-                break
-            n += 1
-        return out[:n]
 
 
 def hierarchy_text(data: BvhData) -> str:

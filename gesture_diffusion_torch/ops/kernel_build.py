@@ -1,11 +1,14 @@
-"""Build a CUDA source of ``csrc/`` into a plain-C shared library.
+"""Build a source of ``csrc/`` into a plain-C shared library.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` at first use,
-into ``build/torch_kernels/`` beside the package (``.gitignore`` lists
-``/build/``).  The library name carries a hash of the source and flags,
-so an edited source is never served from a stale build; the output is
-written to a temporary name and renamed, so concurrent builders cannot
-load a half-written file.  Loaded with ``ctypes``.
+A CUDA source (``<name>.cu``): ``nvcc -gencode arch=compute_90a,code=sm_90a
+-O3 -shared`` at first use, into ``build/torch_kernels/`` beside the
+package.  A host C++ source (``<name>.cpp``): ``g++ -O3 -shared -fPIC``
+into ``build/host/``.  (``.gitignore`` lists ``/build/``.)  The library
+name carries a hash of the source and flags, so an edited source is never
+served from a stale build; the output is written to a temporary name and
+renamed, so concurrent builders cannot load a half-written file.  Loaded
+with ``ctypes``.  A compiler that is missing or fails raises; nothing
+falls back to another route.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 #: name -> (library path, seconds the build took or 0.0 if cached, ptxas log)
 BUILD_INFO: dict = {}
@@ -38,25 +43,44 @@ def _nvcc() -> str:
                        "the port's kernels (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an identical build exists."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: a host C++ compiler is needed to build "
+                       "the port's native BVH parser (put g++ on PATH)")
+
+
+def _build(name: str, src: Path, out_dir: Path, compiler, flags) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = out_dir / f"lib{name}-{digest}.so"
     if out.exists():
         BUILD_INFO.setdefault(name, (out, 0.0, ""))
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    exe = compiler()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([exe, *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-8000:]}")
+        raise RuntimeError(f"{Path(exe).name} failed on {src}:\n"
+                           f"{proc.stderr[-8000:]}")
     os.replace(tmp, out)
     BUILD_INFO[name] = (out, time.perf_counter() - t0, proc.stderr)
     return out
+
+
+def build_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an identical build exists."""
+    return _build(name, CSRC / f"{name}.cu", BUILD_DIR, _nvcc, NVCC_FLAGS)
+
+
+def build_host_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` for the host unless an identical build
+    exists."""
+    return _build(name, CSRC / f"{name}.cpp", HOST_BUILD_DIR, _gxx, GXX_FLAGS)
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -248,10 +248,21 @@ def test_unported_settings_raise(tmp_path, path, value, match):
 
 
 def test_prep_without_synthetic_and_eval_without_checkpoint(tmp_path):
+    """Without ``Data.synthetic``, prep reads the BEAT corpus: a missing
+    ``src_dir_path`` fails with the JAX package's message, and a non-empty
+    ``spt_dir_path`` is not written over."""
     raw = _smoke_config(tmp_path)
     del raw["Data"]["synthetic"]
-    with pytest.raises(NotImplementedError, match="item 2"):
+    raw["Data"]["src_dir_path"] = str(tmp_path / "no-corpus")
+    with pytest.raises(FileNotFoundError, match="Source data not found"):
         cli.main(["--phase", "prep", "--config", _write(tmp_path, raw), "--device", "cpu"])
+    assert not os.path.exists(raw["Data"]["spt_dir_path"])
+    os.makedirs(tmp_path / "no-corpus")
+    os.makedirs(raw["Data"]["spt_dir_path"])
+    (tmp_path / "spt" / "notes.txt").write_bytes(b"kept")
+    with pytest.raises(FileExistsError, match="Manually remove"):
+        cli.main(["--phase", "prep", "--config", _write(tmp_path, raw), "--device", "cpu"])
+    assert os.listdir(tmp_path / "spt") == ["notes.txt"]
     raw = _smoke_config(tmp_path)
     cfg = _write(tmp_path, raw, "synthetic.json")
     with pytest.raises(FileNotFoundError, match="run --phase train first"):

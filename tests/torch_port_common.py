@@ -6,8 +6,13 @@ the JAX package, moved off their init values (biases, LayerNorm/BN affine,
 BN running statistics), and carried into the port with
 ``state_dict_from_jax``.  The inpaint model type's conditioning MLP starts
 at zero in both packages; here its kernels are redrawn from the seed, so
-that what it adds is visible to every comparison.
+that what it adds is visible to every comparison.  ``write_toy_recording``
+writes one recording of a toy BEAT corpus (BVH, wav, TextGrid, facial
+JSON) for the prep and export tests.
 """
+
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -116,3 +121,68 @@ def rel_err(ours, ref) -> float:
     """max |ours - ref| / max |ref|."""
     ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
     return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+# -- a toy BEAT corpus ---------------------------------------------------------
+
+TOY_BVH_HEADER = (
+    "HIERARCHY\nROOT Hips\n{\n"
+    "\tOFFSET 0 0 0\n"
+    "\tCHANNELS 6 Xposition Yposition Zposition Xrotation Yrotation Zrotation\n"
+    "\tJOINT Spine\n\t{\n\t\tOFFSET 0 2 0\n"
+    "\t\tCHANNELS 3 Xrotation Yrotation Zrotation\n"
+    "\t\tEnd Site\n\t\t{\n\t\t\tOFFSET 0 1 0\n\t\t}\n\t}\n}\n")
+
+
+def textgrid_text(words, seconds: float) -> str:
+    """A long-format Praat TextGrid with one word tier: ``words`` as
+    (xmin, xmax, mark), the gaps between them as empty intervals."""
+    ivs, t = [], 0.0
+    for xmin, xmax, mark in words:
+        if xmin > t:
+            ivs.append((t, xmin, ""))
+        ivs.append((xmin, xmax, mark))
+        t = xmax
+    if t < seconds:
+        ivs.append((t, seconds, ""))
+    body = "".join(
+        f"        intervals [{i + 1}]:\n            xmin = {a}\n"
+        f"            xmax = {b}\n            text = \"{m}\"\n"
+        for i, (a, b, m) in enumerate(ivs))
+    return ('File type = "ooTextFile"\nObject class = "TextGrid"\n\n'
+            f"xmin = 0\nxmax = {seconds}\ntiers? <exists>\nsize = 1\nitem []:\n"
+            '    item [1]:\n        class = "IntervalTier"\n        name = "words"\n'
+            f"        xmin = 0\n        xmax = {seconds}\n"
+            f"        intervals: size = {len(ivs)}\n" + body)
+
+
+def write_toy_recording(directory, name: str, seed: int, seconds: int = 30,
+                        wav_sr: int = 8000, textgrid: bool = True,
+                        face: bool = False) -> None:
+    """``{name}.bvh`` (the 2-joint toy skeleton at 120 fps, seeded values
+    printed as %.4f), ``{name}.wav`` (int16 at ``wav_sr``), and unless
+    told otherwise ``{name}.TextGrid`` (seeded words, some before the 5 s
+    sync) and ``{name}.json`` (BEAT facial weights at 60 fps)."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(str(directory), name)
+    n = seconds * 120
+    vals = rng.uniform(-30, 30, (n, 9))
+    with open(base + ".bvh", "w") as f:
+        f.write(TOY_BVH_HEADER + f"MOTION\nFrames: {n}\nFrame Time: 0.008333\n")
+        f.write("".join(" ".join(f"{v:.4f}" for v in row) + "\n" for row in vals))
+    wav = (rng.normal(0, 0.1, seconds * wav_sr) * 32767 * 0.2).astype(np.int16)
+    wavfile.write(base + ".wav", wav_sr, wav)
+    if textgrid:
+        vocab = ["hello", "world", "gesture", f"word{seed}", "beat"]
+        starts = np.sort(rng.uniform(0.5, seconds - 2.0, 8))
+        words = [(round(float(s), 3), round(float(s) + 0.4, 3), vocab[i % 5])
+                 for i, s in enumerate(starts)]
+        with open(base + ".TextGrid", "w") as f:
+            f.write(textgrid_text(words, float(seconds)))
+    if face:
+        frames = [{"weights": rng.uniform(0, 1, 4).round(4).tolist()}
+                  for _ in range(seconds * 60)]
+        with open(base + ".json", "w") as f:
+            json.dump({"frames": frames}, f)

@@ -4,7 +4,7 @@ NVIDIA GPU: the BEAT serving path end to end, at full width, for all three
 model types and both sampling algorithms; training and the phase CLI; a
 user's run from a BEAT corpus tree to BVH files and video; the
 TED-Expressive configuration and the other decoders, which no fused
-kernel serves.
+kernel serves; the pymo mocap transforms and the model zoo's other stacks.
 
     python3 chip_smoke.py
 
@@ -82,11 +82,24 @@ Phases (any failure raises and the script exits non-zero):
   10. the GCN and UNet decoders at smoke widths (``decoder_paths``; no
      shipped configuration uses them): one forward, one train step and one
      50-step ``generate_sample`` each, on the card against the CPU;
-  11. print the kernels' JSON line and, last, the device line.
+  11. the pymo mocap stack (``mocap_paths``, ``[mocap]`` lines): one 70 s
+     recording at 120 fps over the 75-joint skeleton through the
+     transforms on the card and on the CPU (expmap, positions, the expmap
+     inverse, pos_rot_deltas with smoothing and its inverse, the absolute
+     translation deltas, Mirror, EulerReorder, DownSampler -> JointSelector
+     -> Numpyfier): the largest difference of each and its seconds on
+     both, near-tie flips counted and held to their rotation; the golden
+     pymo output on the card; [corpus] gen's BVH in positions on the card,
+     written as the HTML player;
+  12. the model zoo's other stacks at full width (``zoo_paths``, ``[zoo]``):
+     the GLIDE UNet at glide-text2im's 64x64 base widths, the Primer-EZ
+     encoder and decoder at the flagship decoder's, SEBottleneck at the
+     trunk's last stage, each in float32 against float64 on the card;
+  13. print the kernels' JSON line and, last, the device line.
 
-    python3 chip_smoke.py --only corpus tedexp decoders
+    python3 chip_smoke.py --only corpus tedexp decoders mocap zoo
 
-runs phases 8, 9 and 10 alone (no kernel phases, no result line), to try
+runs phases 8 to 12 alone (no kernel phases, no result line), to try
 them.
 
 Needs CUDA; imports nothing of JAX.
@@ -804,26 +817,41 @@ def corpus_header():
     return header, sum(int(part.split()[0]) for part in header.split("CHANNELS")[1:])
 
 
+def recording_bvh(rng, heading: bool = False) -> str:
+    """The BVH text of one synthetic recording of CORPUS_SECONDS at 120 fps
+    over the 75-joint skeleton: every channel a slow sinusoid plus noise.
+    With ``heading`` the root turns as far as 155 degrees either way about
+    the vertical, upright within 5 degrees, so that its XYZ euler angles
+    pass the gimbal at a Yrotation of +-90."""
+    header, n_channels = corpus_header()
+    n_frames = CORPUS_SECONDS * 120
+    t = np.arange(n_frames)[:, None] / 120.0
+    motion = (rng.uniform(-30, 30, n_channels)
+              + 15 * np.sin(2 * np.pi * rng.uniform(0.2, 1.5, n_channels) * t
+                            + rng.uniform(0, 6, n_channels))
+              + rng.normal(0, 1, (n_frames, n_channels)))
+    if heading:                     # the root's channels: X Y Z position, X Y Z rotation
+        s = t[:, 0]
+        motion[:, 3] = 5 * np.sin(2 * np.pi * 0.3 * s)
+        motion[:, 4] = np.rad2deg(2.7 * np.sin(2 * np.pi * 0.013 * s)
+                                  + 0.2 * np.sin(2 * np.pi * 0.11 * s + 1))
+        motion[:, 5] = 4 * np.sin(2 * np.pi * 0.23 * s + 2)
+    row = " ".join(["%.4f"] * n_channels) + "\n"
+    return (header + f"MOTION\nFrames: {n_frames}\nFrame Time: 0.008333\n"
+            + "".join(row % tuple(r) for r in motion.tolist()))
+
+
 def write_corpus(src: str) -> int:
     """The synthetic BEAT recordings of speaker 1 under ``src``; returns
     the bytes of BVH text written."""
     from scipy.io import wavfile
 
-    header, n_channels = corpus_header()
-    n_frames = CORPUS_SECONDS * 120
     os.makedirs(src)
     bvh_bytes = 0
     names = CORPUS_USABLE + [CORPUS_UNSYNCABLE, CORPUS_NO_TEXTGRID]
     for k, name in enumerate(names):
         rng = np.random.default_rng(100 + k)
-        t = np.arange(n_frames)[:, None] / 120.0
-        motion = (rng.uniform(-30, 30, n_channels)
-                  + 15 * np.sin(2 * np.pi * rng.uniform(0.2, 1.5, n_channels) * t
-                                + rng.uniform(0, 6, n_channels))
-                  + rng.normal(0, 1, (n_frames, n_channels)))
-        row = " ".join(["%.4f"] * n_channels) + "\n"
-        text = (header + f"MOTION\nFrames: {n_frames}\nFrame Time: 0.008333\n"
-                + "".join(row % tuple(r) for r in motion.tolist()))
+        text = recording_bvh(rng)
         base = os.path.join(src, name)
         with open(base + ".bvh", "w") as f:
             f.write(text)
@@ -849,7 +877,8 @@ def corpus_paths(smi, check) -> int:
     the native BVH parser against its numpy route; the kernel at gen's
     shapes on the trained weights through ``check``; then
     ``sample2bvh_batch`` with an exact round trip, forward kinematics and
-    a raw AVI with the speech.  Returns gen's fused-kernel launches."""
+    a raw AVI with the speech.  Returns gen's fused-kernel launches and
+    the generated BVH of the test sequence, parsed back."""
     import contextlib
     import io
     import pickle
@@ -1053,6 +1082,8 @@ def corpus_paths(smi, check) -> int:
         if not path.endswith(".bvh"):
             continue
         back = parse_bvh(path)
+        if not path.endswith("-gt.bvh"):
+            generated = back
         pose = sample["pose" if path.endswith("-gt.bvh") else "out"]
         for k, joint in enumerate(data["joints"]):
             for axis, c in enumerate("XYZ"):
@@ -1084,7 +1115,7 @@ def corpus_paths(smi, check) -> int:
             or len({fr.tobytes() for fr in frames}) < 2):
         raise AssertionError("export: BVH round trip, kinematics or AVI not right")
     tmp.cleanup()
-    return launched["gen"]
+    return launched["gen"], generated
 
 
 # -- phase 9: TED-Expressive ---------------------------------------------------
@@ -1443,11 +1474,384 @@ def decoder_paths(smi, dev) -> dict:
     return summary
 
 
+# -- phase 11: the pymo mocap stack -------------------------------------------
+# the card against the CPU, both through the port in float32: positions to
+# 1e-4 of max |CPU|, angles to 1e-3 degrees (expmap and pivot columns, in
+# radians, to the same angle).  A frame whose joint rotation is the same on
+# both sides in another representation (a near-tie of the unroll, of
+# Shepperd's argmax or of the gimbal test that the two sides' sin/cos break
+# apart) is counted as a flip and held to the rotation instead: its matrix
+# within the angle bar plus, for euler angles, MOCAP_GIMBAL_ULPS float32
+# ulps over |cos| of the middle angle (asin's slope there; the port against
+# JAX on the CPU needs 5, tests/test_torch_port_mocap.py)
+MOCAP_POS_BAR, MOCAP_ANGLE_BAR, MOCAP_GIMBAL_ULPS = 1e-4, 1e-3, 8
+# the golden npz of the reference pymo, at the JAX test's own tolerance
+# (tests/test_mocap_transforms.py::_check)
+GOLDEN_ATOL, GOLDEN_RTOL = 2e-3, 2e-4
+MOCAP_FPS = 20           # DownSampler's target: the config's pose_fps
+
+
+def _rotmats(vals: np.ndarray, kind: str) -> np.ndarray:
+    """(T, 3) euler degrees in ``kind``'s order, or rotation vectors
+    (``kind`` "expmap") -> (T, 3, 3), float64."""
+    from scipy.spatial.transform import Rotation
+
+    if kind == "expmap":
+        return Rotation.from_rotvec(vals).as_matrix()
+    return Rotation.from_euler(kind, vals, degrees=True).as_matrix()
+
+
+def mocap_compare(card, cpu) -> dict:
+    """The card's track against the CPU's, column by name: the channel
+    tables must be equal; positions and angles within their bars, flipped
+    representations held to their rotation.  Returns the worst errors and
+    the flips as (joint, frames, first frame, worst float32 ulps over
+    |cos| of the middle angle)."""
+    if card.channel_names != cpu.channel_names:
+        raise AssertionError("the card's channel table differs from the CPU's")
+    cols = {n: i for i, n in enumerate(cpu.column_names)}
+    pos = [i for n, i in cols.items() if n.endswith("position")]
+    scale = max(float(np.abs(cpu.values[:, pos]).max()), 1e-30) if pos else 1.0
+    out = {"pos": 0.0, "ang": 0.0, "flips": []}
+    if pos:
+        out["pos"] = float(np.abs(card.values[:, pos] - cpu.values[:, pos]).max()) / scale
+    rad_bar = np.deg2rad(MOCAP_ANGLE_BAR)
+    for joint, info in cpu.joints.items():
+        # (columns, rotation kind, in radians)
+        for names, kind, radians in (
+                ([f"{joint}_{p}" for p in ("alpha", "beta", "gamma")], "expmap", True),
+                ([f"{joint}_{a}rotation" for a in info.order], info.order, False),
+                ([f"{joint}_dYrotation"], None, True)):
+            if len(names) not in (1, 3) or not all(n in cols for n in names):
+                continue
+            idx = [cols[n] for n in names]
+            a, b = card.values[:, idx], cpu.values[:, idx]
+            d = np.abs(a - b).max(axis=1)
+            if radians:
+                d = np.rad2deg(d)
+            bad = np.flatnonzero(d > MOCAP_ANGLE_BAR)
+            if bad.size and kind is not None:
+                same = np.abs(_rotmats(a[bad], kind) - _rotmats(b[bad], kind)
+                              ).reshape(bad.size, -1).max(axis=1)
+                slack = np.zeros(bad.size)
+                if kind != "expmap":     # a float32 ulp through asin's slope
+                    slack = (np.finfo(np.float32).eps
+                             / np.abs(np.cos(np.deg2rad(b[bad, 1]))))
+                ulps = float((same / slack).max()) if slack.any() else 0.0
+                if (same > rad_bar + MOCAP_GIMBAL_ULPS * slack).any():
+                    raise AssertionError(
+                        f"{joint}: {bad.size} frames off the CPU's rotation by "
+                        f"{same.max():.3e} ({ulps:.1f} ulps over |cos beta|)")
+                out["flips"].append((joint, int(bad.size), int(bad[0]), round(ulps, 2)))
+                d[bad] = 0.0
+            elif bad.size:
+                raise AssertionError(f"{names[0]} off the CPU's by {d.max():.3e}")
+            out["ang"] = max(out["ang"], float(d.max()))
+    if out["pos"] > MOCAP_POS_BAR:
+        raise AssertionError(f"positions off the CPU's by {out['pos']:.3e} of max |CPU|")
+    return out
+
+
+def golden_on_card(dev) -> dict:
+    """The transforms on the card over tests/golden/synth_fullbody.bvh (and
+    toy_chain.bvh for the expmap2pos tag) against the reference pymo's
+    output, tag by tag, at the JAX test's tolerance.  Returns the number of
+    tags and columns held and the worst |d| / (atol + rtol |ref|)."""
+    from gesture_diffusion_torch.data import mocap_transforms as mt
+    from gesture_diffusion_torch.data.bvh import parse_bvh
+
+    gold = os.path.join(REPO, "tests", "golden")
+    golden = np.load(os.path.join(gold, "pymo_transforms.npz"))
+    track = parse_bvh(os.path.join(gold, "synth_fullbody.bvh"))
+    toy = parse_bvh(os.path.join(gold, "toy_chain.bvh"))
+    outs = {}
+    mp = mt.MocapParameterizer("expmap", device=dev)
+    outs["expmap"] = mp.transform([track])
+    outs["expmap_inv"] = mp.inverse_transform(outs["expmap"])
+    outs["toy_expmap2pos"] = mt.MocapParameterizer("expmap2pos", device=dev).transform(
+        mp.transform([toy]))
+    outs["position"] = mt.MocapParameterizer("position", device=dev).transform([track])
+    for axis in "XY":
+        outs[f"mirror{axis}"] = mt.Mirror(axis, append=False).transform([track])
+    outs["reorderZXY"] = mt.EulerReorder("ZXY", device=dev).fit([track]).transform([track])
+    for method, ps, rs in (("abdolute_translation_deltas", 0, 0),
+                           ("abdolute_translation_deltas", 4, 0),
+                           ("pos_rot_deltas", 0, 0), ("pos_rot_deltas", 5, 2),
+                           ("hip_centric", 0, 0)):
+        rt = mt.RootTransformer(method, ps, rs, device=dev)
+        tag = f"root_{method}_{ps}_{rs}"
+        outs[tag] = rt.transform([track])
+        if method != "hip_centric":
+            outs[tag + "_inv"] = rt.inverse_transform(outs[tag], start_pos=(3.0, -2.0))
+    rcp = mt.RootCentricPositionNormalizer()
+    outs["rootcentric"] = rcp.transform(outs["position"])
+    outs["rootcentric_inv"] = rcp.inverse_transform(outs["rootcentric"])
+    const = track.clone()
+    const.values[:, const.column_names.index("Hips_Xposition")] = 1.25
+    cr = mt.ConstantsRemover().fit([const])
+    outs["constants"] = cr.transform([const])
+    outs["constants_inv"] = cr.inverse_transform(outs["constants"])
+    dropped = sorted(n.decode() for n in golden["constants/dropped"])
+    if sorted(cr.const_dims_) != dropped:
+        raise AssertionError("ConstantsRemover dropped other columns than pymo")
+    worst, n_cols = 0.0, 0
+    for tag, tracks in outs.items():
+        got = dict(zip(tracks[0].column_names, tracks[0].values.T))
+        want = {k.split("/", 1)[1]: golden[k] for k in golden.files
+                if k.startswith(tag + "/") and not k.endswith("/dropped")}
+        if not want or set(got) != set(want):
+            raise AssertionError(f"golden {tag}: the column sets differ")
+        for name, ref in want.items():
+            margin = float((np.abs(got[name] - ref)
+                            / (GOLDEN_ATOL + GOLDEN_RTOL * np.abs(ref))).max())
+            worst, n_cols = max(worst, margin), n_cols + 1
+    if worst > 1.0:
+        raise AssertionError(f"the card's transforms miss pymo's golden output "
+                             f"({worst:.3f} of the tolerance)")
+    return {"tags": len(outs), "columns": n_cols, "worst": worst}
+
+
+def mocap_paths(smi, dev, generated=None) -> dict:
+    """Phase 11: the pymo mocap stack on the card against the CPU on one
+    BEAT-sized recording (CORPUS_SECONDS at 120 fps, the 75-joint skeleton,
+    written as write_corpus writes one), pymo's golden output on the card,
+    and ``generated`` (the BVH [corpus]'s gen wrote; the recording's first
+    1200 frames when that phase did not run) moved to positions on the
+    card and written as the HTML player.  Raises on any failed check."""
+    import re
+
+    from gesture_diffusion_torch.data import mocap_transforms as mt
+    from gesture_diffusion_torch.data.bvh import parse_bvh
+    from gesture_diffusion_torch.export import render_mocap_player_html
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+
+    fs.launches = 0
+    track = parse_bvh(recording_bvh(np.random.default_rng(100), heading=True),
+                      is_text=True)
+    n_sites = sum(j.is_end_site for j in track.joints.values())
+    log(f"[mocap] recording: {track.n_frames} frames at "
+        f"{round(1 / track.framerate)} fps, {len(track.joints) - n_sites} joints "
+        f"and {n_sites} end sites, {track.values.shape[1]} channels")
+    with open(os.path.join(REPO, "configs", "beat-ours.json")) as f:
+        joints = json.load(f)["Data"]["joints"]          # the flagship's 41
+
+    def chain(pos):
+        ds = mt.DownSampler(MOCAP_FPS).transform(pos)
+        sel = mt.JointSelector(joints, include_root=True).fit(ds).transform(ds)
+        return mt.Numpyfier().fit(sel).transform(sel)
+
+    def run(device):
+        """name -> (output, seconds) for each transform on ``device``."""
+        out = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            out[name] = (result, time.perf_counter() - t0)
+            return result
+
+        expmap = mt.MocapParameterizer("expmap", device=device)
+        exp = timed("expmap", lambda: expmap.transform([track]))
+        timed("expmap inverse", lambda: expmap.inverse_transform(exp))
+        pos = timed("position", lambda: mt.MocapParameterizer(
+            "position", device=device).transform([track]))
+        prd = mt.RootTransformer("pos_rot_deltas", 5, 2, device=device)
+        fwd = timed("pos_rot_deltas (5, 2)", lambda: prd.transform([track]))
+        timed("pos_rot_deltas inverse", lambda: prd.inverse_transform(fwd))
+        timed("abdolute_translation_deltas", lambda: mt.RootTransformer(
+            "abdolute_translation_deltas", device=device).transform([track]))
+        timed("Mirror('X')", lambda: mt.Mirror("X", append=False).transform([track]))
+        timed("EulerReorder('ZXY')", lambda: mt.EulerReorder(
+            "ZXY", device=device).fit([track]).transform([track]))
+        timed("DownSampler -> JointSelector -> Numpyfier", lambda: chain(pos))
+        return out
+
+    # a short clip first: the first launches of a process load the kernels
+    warm = track.clone()
+    warm.values = warm.values[:10]
+    mt.MocapParameterizer("expmap", device=dev).transform([warm])
+    card, cpu = run(dev), run("cpu")
+    flips_all = []
+    for name, (got, card_s) in card.items():
+        ref, cpu_s = cpu[name]
+        if isinstance(ref, np.ndarray):
+            scale = float(np.abs(ref).max())
+            r = {"pos": float(np.abs(got - ref).max()) / scale, "ang": 0.0, "flips": []}
+            if got.shape != ref.shape or r["pos"] > MOCAP_POS_BAR:
+                raise AssertionError(f"{name}: the card's array is off the CPU's")
+        else:
+            r = mocap_compare(got[0], ref[0])
+        flips_all += [(name, *f) for f in r["flips"]]
+        log(f"[mocap] {name}: card {card_s:.3f} s, CPU {cpu_s:.3f} s; card vs CPU "
+            f"positions {r['pos']:.3e} of max|CPU| (bar {MOCAP_POS_BAR:.0e}), angles "
+            f"{r['ang']:.3e} deg (bar {MOCAP_ANGLE_BAR:.0e}); flips "
+            f"{sum(f[1] for f in r['flips'])} [{smi}]")
+    log(f"[mocap] near-tie flips (transform, joint, frames, first frame, ulps over "
+        f"|cos beta|), each held to its rotation: {flips_all or 'none'}")
+
+    g = golden_on_card(dev)
+    log(f"[mocap] golden pymo output on the card: {g['tags']} tags, {g['columns']} "
+        f"columns, worst |d| {g['worst']:.3f} of atol {GOLDEN_ATOL:.0e} + rtol "
+        f"{GOLDEN_RTOL:.0e} |ref|")
+
+    source = "[corpus] gen's BVH"
+    if generated is None:
+        generated = track.clone()
+        generated.values = generated.values[:1200]
+        source = "the recording's first 1200 frames ([corpus] did not run)"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pos = mt.MocapParameterizer("position", device=dev).transform([generated])[0]
+    page = render_mocap_player_html(pos, frame_time=generated.framerate)
+    player_s = time.perf_counter() - t0
+    frames = json.loads(re.search(r"var frames = (\[.*?\]);\s*//", page, re.S).group(1))
+    shown = json.loads(re.search(r"var joints = (\[.*?\]);", page).group(1))
+    log(f"[mocap] player of {source}: {len(frames)} frames x {len(shown)} joints "
+        f"(track {generated.n_frames} x {len(generated.joints)}), {len(page)} bytes "
+        f"of HTML in {player_s:.2f} s")
+    if (len(frames) != generated.n_frames or shown != list(generated.joints)
+            or any(len(f) != 3 * len(shown) for f in frames)
+            or not np.isfinite(pos.values).all()):
+        raise AssertionError("the player page does not hold the track")
+    if fs.launches:
+        raise AssertionError("the mocap stack launched the fused kernel")
+    return {"flips": flips_all, "golden": g}
+
+
+# -- phase 12: the model zoo's other stacks at full width ---------------------
+ZOO_BAR = 1e-4           # max |f32 - f64| / max |f64|, on the card, TF32 off
+# glide-text2im's 64x64 base model (model_and_diffusion_defaults in
+# glide_text2im/model_creation.py): attention_resolutions "32,16,8" at 64
+# are the downsample rates 2, 4, 8; its text transformer (xf_width 512,
+# text_ctx 128) is not built: encoder_out stands in for its output
+GLIDE_BASE = dict(in_channels=3, model_channels=192, out_channels=6,
+                  num_res_blocks=3, attention_resolutions=(2, 4, 8),
+                  channel_mult=(1, 2, 3, 4), num_head_channels=64,
+                  use_scale_shift_norm=True, resblock_updown=True,
+                  encoder_channels=512, dims=2)
+GLIDE_BATCH, GLIDE_SIZE, GLIDE_TOKENS = 2, 64, 128
+ZOO_BATCH = 64
+
+
+def _randomise_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Zero-initialised weights (GLIDE's output convs) drawn at 1/sqrt(fan
+    in), and BatchNorm statistics drawn, from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                fan_in = p[0].numel() if p.dim() > 1 else p.numel()
+                p.copy_(torch.randn(p.shape, generator=g) * fan_in ** -0.5)
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=g))
+            elif name.endswith("running_var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=g))
+    return model
+
+
+def zoo_paths(smi, dev) -> dict:
+    """Phase 12: the GLIDE UNet at glide-text2im's base widths, the Primer-EZ
+    encoder and decoder at the flagship decoder's, and SEBottleneck at the
+    last stage of the HA2G trunk, each in float32 (TF32 off) against its
+    own float64 forward on the card; parameters, forward ms (CUDA events),
+    peak MB, and the forward's operations (``FlopCounterMode``) with the
+    rate they were done at.  Raises above ZOO_BAR."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gesture_diffusion_torch.models.glide_unet import GlideUNet
+    from gesture_diffusion_torch.models.primer import PrimerEZDecoder, PrimerEZEncoder
+    from gesture_diffusion_torch.models.speech_encoder import (SEBottleneck,
+                                                               SEResNetEncoder)
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.ops.audio import speech_frontend
+
+    fs.launches = 0
+    g = torch.Generator().manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    # the spatial size the trunk's last stage sees for a 40-frame window
+    trunk = SEResNetEncoder().to(dev).eval()
+    seen = {}
+
+    def hook(module, inputs, output):
+        seen["x"] = output.shape
+
+    trunk.layer4.register_forward_hook(hook)
+    with torch.no_grad():
+        trunk(speech_frontend(torch.zeros(1, WINDOW * SR // FPS, device=dev)))
+    h4, w4 = seen["x"][2:]
+    causal = torch.tril(torch.ones(WINDOW, WINDOW, dtype=torch.bool, device=dev))
+    cases = {
+        "GlideUNet (glide-text2im base 64x64)": (
+            lambda: GlideUNet(**GLIDE_BASE),
+            (randn(GLIDE_BATCH, 3, GLIDE_SIZE, GLIDE_SIZE),
+             torch.randint(0, 1000, (GLIDE_BATCH,), generator=g).to(dev)),
+            {"encoder_out": randn(GLIDE_BATCH, GLIDE_BASE["encoder_channels"],
+                                  GLIDE_TOKENS)}),
+        "PrimerEZEncoder": (
+            lambda: PrimerEZEncoder(D_POSE, 256, 8, 4),
+            (randn(ZOO_BATCH, WINDOW, D_POSE),), {}),
+        "PrimerEZDecoder (causal mask)": (
+            lambda: PrimerEZDecoder(D_POSE, 256, 8, 4, d_out=D_POSE),
+            (randn(ZOO_BATCH, WINDOW, D_POSE), randn(ZOO_BATCH, 32, 256)),
+            {"mask": causal[None, :, :, None]}),
+        "SEBottleneck 256->64->256": (
+            lambda: SEBottleneck(256, 64), (randn(ZOO_BATCH, 256, h4, w4),), {}),
+        "SEBottleneck 256->64->256, stride-2 projection": (
+            lambda: SEBottleneck(256, 64, stride=2),
+            (randn(ZOO_BATCH, 256, h4, w4),), {}),
+    }
+    out = {}
+    for k, (name, (make, args, kwargs)) in enumerate(cases.items()):
+        torch.manual_seed(k)
+        with torch.device(dev):
+            model = make()
+        # .to: a buffer made from numpy (Primer's positional table) is
+        # built on the host whatever the default device
+        model = _randomise_(model.to(dev), k).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            y32 = model(*args, **kwargs)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            ms = cuda_ms(lambda: model(*args, **kwargs), reps=5)
+            with FlopCounterMode(display=False) as counter:
+                model(*args, **kwargs)
+            gflop = counter.get_total_flops() / 1e9
+            model64 = model.double()
+            y64 = model64(*[a.double() if a.is_floating_point() else a for a in args],
+                          **{k2: (v.double() if v.is_floating_point() else v)
+                             for k2, v in kwargs.items()})
+        r = float((y32.double() - y64).abs().max() / y64.abs().max())
+        out[name] = dict(params=n_params, ms=ms, peak_mb=peak, rel=r, gflop=gflop)
+        log(f"[zoo] {name}: {n_params} parameters, input "
+            f"{tuple(args[0].shape)}, forward {ms:.3f} ms (CUDA events, float32, "
+            f"TF32 off; {gflop:.3f} GFLOP, {gflop / ms:.2f} TFLOP/s), peak "
+            f"{peak:.1f} MB above the weights, max|f32 - f64| / max|f64| "
+            f"{r:.3e} (bar {ZOO_BAR:.0e}) [{smi}]")
+        if not bool(torch.isfinite(y32).all()) or r > ZOO_BAR:
+            raise AssertionError(f"{name}: float32 off float64 by {r:.3e}")
+        del model, model64, y32, y64
+        torch.cuda.empty_cache()
+    if fs.launches:
+        raise AssertionError("the zoo launched the fused kernel")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", nargs="+", choices=("corpus", "tedexp", "decoders"),
+    parser.add_argument("--only", nargs="+",
+                        choices=("corpus", "tedexp", "decoders", "mocap", "zoo"),
                         help="run only these phases (no kernel phases; "
                         "corpus builds the kernel for its gen) and print no "
                         "result line: for trying a phase")
@@ -1478,7 +1882,8 @@ def main(argv=None) -> int:
             if name == "corpus":
                 corpus_paths(smi, make_check({}, {}))
             else:
-                {"tedexp": tedexp_paths, "decoders": decoder_paths}[name](smi, dev)
+                {"tedexp": tedexp_paths, "decoders": decoder_paths,
+                 "mocap": mocap_paths, "zoo": zoo_paths}[name](smi, dev)
             log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
         log(f"[done] {time.perf_counter() - t_start:.1f} s (--only: no result line)")
         return 0
@@ -1800,7 +2205,8 @@ def main(argv=None) -> int:
 
     # -- phase 8: the corpus ends of a user's run -----------------------------
     t0 = time.perf_counter()
-    launches["ddim"] += corpus_paths(smi, check)
+    n_gen, generated = corpus_paths(smi, check)
+    launches["ddim"] += n_gen
     log(f"[corpus] phase took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 9: TED-Expressive; phase 10: the GCN and UNet decoders --------
@@ -1810,6 +2216,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     decoder_paths(smi, dev)
     log(f"[decoders] phase took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 11: the pymo mocap stack; phase 12: the model zoo ---------------
+    t0 = time.perf_counter()
+    mocap_paths(smi, dev, generated)
+    log(f"[mocap] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zoo_paths(smi, dev)
+    log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s")
 
     what = {
         "ddim": ("fused_ddim_sample", f"{TPU_KERNEL}:705",

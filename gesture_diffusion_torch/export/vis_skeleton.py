@@ -2,16 +2,17 @@
 
 Port of ``gesture_diffusion_tpu/export/vis_skeleton.py``: the node tree, FK
 and zero-insertion for joint subsets all come from the port's
-``data.Skeleton`` (derived from the hierarchy text).  The helpers that draw
-a position-parameterised track (``draw_stickfigure{,3d}``) are not ported
-yet: they need the mocap transforms.
+``data.Skeleton`` (derived from the hierarchy text).  ``draw_stickfigure``
+and ``draw_stickfigure3d`` draw one frame of a position-parameterised
+track (``data.mocap_transforms.MocapParameterizer('position')`` output).
 
 Output formats: .mp4 and .avi write video WITH the speech audio muxed in
 (the muxers of ``export/mp4.py`` and ``export/avi.py``, no ffmpeg); .gif
 uses the pillow writer; any other path gets a directory of PNG frames.  For
 the other outputs audio is written alongside as .wav.  The renderers need
 matplotlib (and Pillow for JPEG frames and GIFs), imported when called:
-``pose_to_positions`` needs neither.
+``pose_to_positions`` needs neither.  The stick figures force no
+matplotlib backend: they return axes for interactive or notebook display.
 """
 
 from __future__ import annotations
@@ -133,6 +134,63 @@ def make_skeleton_video(
         fig.savefig(os.path.join(output_path, f"frame_{i:05d}.png"))
     plt.close(fig)
     return output_path
+
+
+def _position_columns(track):
+    cols = {name: i for i, name in enumerate(track.column_names)}
+
+    def at(joint: str, axis: str, frame: int) -> float:
+        return float(track.values[frame, cols[f"{joint}_{axis}position"]])
+
+    return at
+
+
+def draw_stickfigure(track, frame: int, joints=None, draw_names: bool = False,
+                     ax=None, figsize=(8, 8)):
+    """2-D stick figure of one frame of a position-parameterised
+    ``BvhData`` track, the reference's notebook helper
+    (``pymo/viz_tools.py:13-47``).  No backend is forced: a global
+    ``matplotlib.use("Agg")`` would stop inline rendering."""
+    import matplotlib.pyplot as plt
+
+    if ax is None:
+        fig = plt.figure(figsize=figsize)
+        ax = fig.add_subplot(111)
+    joints_to_draw = list(joints) if joints is not None else list(track.joints)
+    at = _position_columns(track)
+    for joint in joints_to_draw:
+        x, y = at(joint, "X", frame), at(joint, "Y", frame)
+        ax.scatter(x=x, y=y, alpha=0.6, c="b", marker="o")
+        for c in track.joints[joint].children:
+            if c in joints_to_draw:
+                ax.plot([x, at(c, "X", frame)], [y, at(c, "Y", frame)],
+                        "k-", lw=2)
+        if draw_names:
+            ax.annotate(joint, (x + 0.1, y + 0.1))
+    return ax
+
+
+def draw_stickfigure3d(track, frame: int, joints=None,
+                       draw_names: bool = False, ax=None, figsize=(8, 8)):
+    """3-D variant (``pymo/viz_tools.py:49-87``), y up; no backend forced,
+    as in ``draw_stickfigure``."""
+    import matplotlib.pyplot as plt
+
+    if ax is None:
+        fig = plt.figure(figsize=figsize)
+        ax = fig.add_subplot(111, projection="3d")
+    joints_to_draw = list(joints) if joints is not None else list(track.joints)
+    at = _position_columns(track)
+    for joint in joints_to_draw:
+        x, y, z = (at(joint, a, frame) for a in "XYZ")
+        ax.scatter(xs=x, ys=z, zs=y, alpha=0.6, c="b", marker="o")
+        for c in track.joints[joint].children:
+            if c in joints_to_draw:
+                ax.plot([x, at(c, "X", frame)], [z, at(c, "Z", frame)],
+                        [y, at(c, "Y", frame)], "k-", lw=2)
+        if draw_names:
+            ax.text(x, z, y, joint)
+    return ax
 
 
 def visualize_sample_skeleton(

@@ -1,3 +1,8 @@
-from .jax_import import motion_ae_state_dict_from_jax, state_dict_from_jax
+from .jax_import import (glide_unet_state_dict_from_jax,
+                         motion_ae_state_dict_from_jax,
+                         primer_state_dict_from_jax,
+                         se_bottleneck_state_dict_from_jax, state_dict_from_jax)
 
-__all__ = ["motion_ae_state_dict_from_jax", "state_dict_from_jax"]
+__all__ = ["glide_unet_state_dict_from_jax", "motion_ae_state_dict_from_jax",
+           "primer_state_dict_from_jax", "se_bottleneck_state_dict_from_jax",
+           "state_dict_from_jax"]

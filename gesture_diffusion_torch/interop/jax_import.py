@@ -4,7 +4,12 @@
 package's ``interop/torch_import.py::import_torch_state_dict`` for all
 four decoders (oneway, cross-attention, GCN, UNet) and all three model
 types (the inpaint type's conditioning MLP is flax
-``inpaint_proj/layers_{0,2,4}`` and ``proj.{0,2,4}`` here).  Input: the
+``inpaint_proj/layers_{0,2,4}`` and ``proj.{0,2,4}`` here).  Its siblings
+invert the importers of the model zoo's other stacks:
+``glide_unet_state_dict_from_jax`` (``import_glide_unet_state_dict``; the
+GLIDE UNet and, given their ``params["unet"]``, its three wrappers),
+``primer_state_dict_from_jax`` (``import_primer_stack``) and
+``se_bottleneck_state_dict_from_jax`` (``_se_bottleneck``).  Input: the
 JAX ``{"params", "batch_stats"}`` tree as numpy arrays (anything
 ``np.asarray`` accepts).  Output: tensors under the reference checkpoint's
 names, which are the port modules' own names.
@@ -226,6 +231,16 @@ def _unet_decoder(sd: dict, base: str, p: Mapping, cfg) -> None:
     _conv_nd(sd, f"{base}.out.2", u["conv_out"])
 
 
+# GlideUNet's ResBlock is UNetAttn's under other flax names
+_GLIDE_RES_NAMES = {"in_norm": "norm_in", "in_conv": "conv_in",
+                    "emb_proj": "emb_proj", "out_norm": "norm_out",
+                    "out_conv": "conv_out", "skip": "skip_proj"}
+
+
+def _glide_res(sd: dict, prefix: str, p: Mapping) -> None:
+    _unet_res_block(sd, prefix, {_GLIDE_RES_NAMES[k]: v for k, v in p.items()})
+
+
 _DECODERS = {
     "oneway_cross_attention":
         lambda sd, p, cfg: _oneway_decoder(sd, "pose_decoder", p, cfg.n_layers),
@@ -277,4 +292,96 @@ def motion_ae_state_dict_from_jax(variables: Mapping) -> "OrderedDict[str, torch
             kind, i = name.rsplit("_", 1)
             attr, convert = kinds[kind]
             convert(sd, f"{part}.{attr}.{i}", p)
+    return sd
+
+
+def glide_unet_state_dict_from_jax(
+        params: Mapping, num_res_blocks: int, attention_resolutions,
+        channel_mult=(1, 2, 4, 8), conv_resample: bool = True,
+        resblock_updown: bool = False,
+        num_classes: "int | None" = None) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX ``GlideUNet``'s params (a wrapper's ``params["unet"]``) ->
+    the port's ``models/glide_unet.py`` state dict; walks the block loop of
+    the JAX importer, so torch block indices line up with the flax names."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    attn_res = set(attention_resolutions)
+    _linear(sd, "time_embed.0", params["time_embed_0"])
+    _linear(sd, "time_embed.2", params["time_embed_2"])
+    if num_classes is not None:
+        sd["label_emb.weight"] = _t(params["label_emb"]["embedding"])
+    _conv_nd(sd, "input_blocks.0.0", params["input_0_conv"])
+    ds, ti = 1, 1
+    for level in range(len(channel_mult)):
+        for _ in range(num_res_blocks):
+            _glide_res(sd, f"input_blocks.{ti}.0", params[f"input_{ti}_res"])
+            if ds in attn_res:
+                _unet_attn_block(sd, f"input_blocks.{ti}.1",
+                                 params[f"input_{ti}_attn"])
+            ti += 1
+        if level != len(channel_mult) - 1:
+            if resblock_updown:
+                _glide_res(sd, f"input_blocks.{ti}.0", params[f"input_{ti}_down"])
+            elif conv_resample:
+                _conv_nd(sd, f"input_blocks.{ti}.0.op", params[f"input_{ti}_down"])
+            ti += 1
+            ds *= 2
+    _glide_res(sd, "middle_block.0", params["middle_res1"])
+    _unet_attn_block(sd, "middle_block.1", params["middle_attn"])
+    _glide_res(sd, "middle_block.2", params["middle_res2"])
+    for oi in range(len(channel_mult) * (num_res_blocks + 1)):
+        level = len(channel_mult) - 1 - oi // (num_res_blocks + 1)
+        i = oi % (num_res_blocks + 1)
+        _glide_res(sd, f"output_blocks.{oi}.0", params[f"output_{oi}_res"])
+        li = 1
+        if ds in attn_res:
+            _unet_attn_block(sd, f"output_blocks.{oi}.{li}",
+                             params[f"output_{oi}_attn"])
+            li += 1
+        if level and i == num_res_blocks:
+            if resblock_updown:
+                _glide_res(sd, f"output_blocks.{oi}.{li}", params[f"output_{oi}_up"])
+            elif conv_resample:
+                _conv_nd(sd, f"output_blocks.{oi}.{li}.conv",
+                         params[f"output_{oi}_up"])
+            ds //= 2
+    _layernorm(sd, "out.0", params["out_norm"])
+    _conv_nd(sd, "out.2", params["out_conv"])
+    return sd
+
+
+def primer_state_dict_from_jax(params: Mapping, n_layers: int,
+                               with_src: bool) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX ``PrimerEZEncoder`` (``with_src=False``) or
+    ``PrimerEZDecoder`` params -> the port's ``models/primer.py`` state
+    dict."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _linear(sd, "pe.linear", params["pe"]["linear"])
+    for i in range(n_layers):
+        lp, lj = f"layers.{i}", params[f"layer{i}"]
+        _layernorm(sd, f"{lp}.norm_self_attn", lj["norm_self_attn"])
+        _mha(sd, f"{lp}.self_attn", lj["self_attn"])
+        if with_src:
+            _layernorm(sd, f"{lp}.norm_src_attn", lj["norm_src_attn"])
+            _mha(sd, f"{lp}.src_attn", lj["src_attn"])
+        _layernorm(sd, f"{lp}.norm_ff", lj["norm_ff"])
+        _linear(sd, f"{lp}.feed_forward.layer1", lj["ff"]["layer1"])
+        _linear(sd, f"{lp}.feed_forward.layer2", lj["ff"]["layer2"])
+    _layernorm(sd, "out_layers.0", params["out_norm"])
+    _linear(sd, "out_layers.1", params["out_proj"])
+    return sd
+
+
+def se_bottleneck_state_dict_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX ``SEBottleneck``'s ``{"params", "batch_stats"}`` -> the
+    port's ``models/speech_encoder.py::SEBottleneck`` state dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for k in (1, 2, 3):
+        _conv(sd, f"conv{k}", p[f"conv{k}"])
+        _bn(sd, f"bn{k}", p[f"bn{k}"], s[f"bn{k}"])
+    _linear(sd, "se.fc.0", p["se"]["Dense_0"])
+    _linear(sd, "se.fc.2", p["se"]["Dense_1"])
+    if "proj_conv" in p:
+        _conv(sd, "downsample.0", p["proj_conv"])
+        _bn(sd, "downsample.1", p["proj_bn"], s["proj_bn"])
     return sd

@@ -11,6 +11,8 @@ Port of ``gesture_diffusion_tpu/models/speech_encoder.py``:
 
 The mel image is (N, 1, freq, time).  Module names follow the reference
 checkpoint (``wav_encoder.feat_extractor.layer{k}.{b}.conv1``, ...).
+``SEBottleneck`` (the reference's other residual block, which the trunk
+does not use) is here too.
 
 Training follows flax, not torch's stock BatchNorm: see ``BatchNorm2d``.
 With ``encoder_dtype="bfloat16"`` the trunk and the projection run under
@@ -93,6 +95,40 @@ class SEBasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn1(F.relu(self.conv1(x)))
         y = self.se(self.bn2(self.conv2(y)))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class SEBottleneck(nn.Module):
+    """1x1 reduce / 3x3 / 1x1 expand (x4) bottleneck with SE, conv-bn-relu
+    order (reference ``ResNetBlocks.py:40-78``).  The trunk builds
+    SEBasicBlocks only; this block is part of the reference's model zoo.
+    The projection (1x1 conv + BN, ``downsample``) is built when the
+    stride or the width changes."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out)
+        self.se = SELayer(out)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
+                BatchNorm2d(out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.se(self.bn3(self.conv3(y)))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
 

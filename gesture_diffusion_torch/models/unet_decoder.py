@@ -3,15 +3,20 @@
 Port of ``gesture_diffusion_tpu/models/unet_decoder.py``.  The UNet runs
 in torch's (N, C, T) layout inside and takes and returns (N, T, C):
 
-  * ``ResBlock1D``: GroupNorm(32, eps 1e-5) + SiLU + conv, FiLM scale and
-    shift from the step embedding, zero-initialised output conv;
+  * ``ResBlock``: GroupNorm(32, eps 1e-5, statistics in float32 at
+    least) + SiLU + conv, FiLM scale and shift from the step embedding,
+    zero-initialised output conv (JAX's ``ResBlock1D``; with its other
+    options, GLIDE's ResBlock);
   * ``UNetAttentionBlock``: self-attention over time with the audio
     stream's keys and values prepended (GLIDE's text-conditioning
     pattern); the fused QKV projection is split head-major, (heads,
     3 * d_k) per frame, and q and k are each scaled by d_k^-1/4;
-  * ``UNet1D``: input, middle and output blocks with skip concatenation,
+  * ``UNet``: input, middle and output blocks with skip concatenation,
     downsampling by a stride-2 conv (padding 1), upsampling by a
-    nearest-neighbour resize and a conv;
+    nearest-neighbour resize and a conv (JAX's ``UNet1D`` at ``dims=1``;
+    its other options, 2-D signals, conv-free resampling, resampling
+    ResBlocks and head widths, are GLIDE's, for
+    ``models/glide_unet.py``);
   * ``UNetAttn``: memory[:, 0] is the diffusion-step token (through the
     time-embedding MLP), memory[:, 1:] the audio stream; the window is
     zero-padded symmetrically so that T keeps halving (``_pad_lengths``)
@@ -34,8 +39,23 @@ import torch.nn.functional as F
 GN_GROUPS, GN_EPS = 32, 1e-5
 
 
+class GroupNorm32(nn.GroupNorm):
+    """GLIDE's ``GroupNorm32``: statistics in float32 at least (a bf16 or
+    fp16 input is normalised in float32, as flax computes it), the output
+    in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(
+            x.to(torch.promote_types(x.dtype, torch.float32))).to(x.dtype)
+
+
 def group_norm(channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(GN_GROUPS, channels, eps=GN_EPS)
+    return GroupNorm32(GN_GROUPS, channels, eps=GN_EPS)
+
+
+def conv_nd(dims: int, *args, **kwargs) -> nn.Module:
+    """``nn.Conv1d`` or ``nn.Conv2d``."""
+    return (nn.Conv1d, nn.Conv2d)[dims - 1](*args, **kwargs)
 
 
 def zero_(module: nn.Module) -> nn.Module:
@@ -44,47 +64,100 @@ def zero_(module: nn.Module) -> nn.Module:
     return module
 
 
-class ResBlock1D(nn.Module):
-    def __init__(self, channels: int, emb_channels: int, out_channels: int,
-                 dropout: float = 0.0):
+class TimestepBlock(nn.Module):
+    """A block whose forward takes the step embedding: ``forward(x, emb)``."""
+
+
+class ResBlock(TimestepBlock):
+    """GLIDE's ResBlock (``unet.py:96-198``): GroupNorm + SiLU + conv in,
+    FiLM (scale-shift norm) or additive step conditioning, zero-initialised
+    output conv.  With ``up`` / ``down`` the conv-free resample is applied
+    to both the branch (after its norm and SiLU, before its conv) and the
+    skip.  The decoder's blocks are ``dims=1, use_scale_shift_norm=True``
+    (JAX's ``ResBlock1D``)."""
+
+    def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
+                 out_channels: Optional[int] = None, use_conv: bool = False,
+                 use_scale_shift_norm: bool = False, dims: int = 2,
+                 up: bool = False, down: bool = False):
         super().__init__()
+        out_channels = out_channels or channels
+        self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
             group_norm(channels), nn.SiLU(),
-            nn.Conv1d(channels, out_channels, 3, padding=1))
+            conv_nd(dims, channels, out_channels, 3, padding=1))
+        self.updown = up or down
+        if up:
+            self.h_upd = Upsample(channels, False, dims)
+            self.x_upd = Upsample(channels, False, dims)
+        elif down:
+            self.h_upd = Downsample(channels, False, dims)
+            self.x_upd = Downsample(channels, False, dims)
+        else:
+            self.h_upd = self.x_upd = nn.Identity()
         self.emb_layers = nn.Sequential(
-            nn.SiLU(), nn.Linear(emb_channels, 2 * out_channels))
+            nn.SiLU(), nn.Linear(emb_channels, (2 if use_scale_shift_norm else 1)
+                                 * out_channels))
         self.out_layers = nn.Sequential(
             group_norm(out_channels), nn.SiLU(), nn.Dropout(dropout),
-            zero_(nn.Conv1d(out_channels, out_channels, 3, padding=1)))
-        self.skip_connection = (
-            nn.Identity() if channels == out_channels
-            else nn.Conv1d(channels, out_channels, 1))
+            zero_(conv_nd(dims, out_channels, out_channels, 3, padding=1)))
+        if out_channels == channels:
+            self.skip_connection = nn.Identity()
+        elif use_conv:
+            self.skip_connection = conv_nd(dims, channels, out_channels, 3,
+                                           padding=1)
+        else:
+            self.skip_connection = conv_nd(dims, channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        """x: (N, C, T); emb: (N, emb_channels)."""
-        h = self.in_layers(x)
-        scale, shift = self.emb_layers(emb)[..., None].chunk(2, dim=1)
-        h = self.out_layers[0](h) * (1 + scale) + shift
-        for layer in self.out_layers[1:]:
-            h = layer(h)
+        """x: (N, C, *spatial); emb: (N, emb_channels)."""
+        if self.updown:
+            h = self.h_upd(self.in_layers[:-1](x))
+            x = self.x_upd(x)
+            h = self.in_layers[-1](h)
+        else:
+            h = self.in_layers(x)
+        e = self.emb_layers(emb).to(h.dtype)
+        e = e.reshape(e.shape + (1,) * (h.dim() - 2))
+        if self.use_scale_shift_norm:
+            scale, shift = e.chunk(2, dim=1)
+            h = self.out_layers[0](h) * (1 + scale) + shift
+            h = self.out_layers[1:](h)
+        else:
+            h = self.out_layers(h + e)
         return self.skip_connection(x) + h
 
 
 class UNetAttentionBlock(nn.Module):
-    def __init__(self, channels: int, heads: int, encoder_channels: int):
+    """GLIDE's AttentionBlock (``unet.py:201-278``): self-attention over
+    the flattened signal, with the encoder's keys and values prepended
+    when the block has ``encoder_channels``; heads by count, or by width
+    with ``num_head_channels``."""
+
+    def __init__(self, channels: int, num_heads: int = 1,
+                 num_head_channels: int = -1,
+                 encoder_channels: Optional[int] = None):
         super().__init__()
-        self.heads = heads
+        if num_head_channels != -1:
+            if channels % num_head_channels:
+                raise ValueError(f"channels {channels} not divisible by head "
+                                 f"width {num_head_channels}")
+            num_heads = channels // num_head_channels
+        self.heads = num_heads
         self.norm = group_norm(channels)
         self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.encoder_kv = nn.Conv1d(encoder_channels, 2 * channels, 1)
+        if encoder_channels is not None:
+            self.encoder_kv = nn.Conv1d(encoder_channels, 2 * channels, 1)
         self.proj_out = zero_(nn.Conv1d(channels, channels, 1))
 
     def forward(self, x: torch.Tensor,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (N, C, T); encoder_out: (N, C_enc, T_enc)."""
-        n, c, t = x.shape
+        """x: (N, C, *spatial); encoder_out: (N, C_enc, T_enc)."""
+        n, c = x.shape[:2]
+        h = x.reshape(n, c, -1)
+        t = h.shape[2]
         d_k = c // self.heads
-        qkv = self.qkv(self.norm(x)).view(n, self.heads, 3 * d_k, t)
+        qkv = self.qkv(self.norm(h)).view(n, self.heads, 3 * d_k, t)
         q, k, v = qkv.split(d_k, dim=2)
         if encoder_out is not None:
             ekv = self.encoder_kv(encoder_out)
@@ -96,34 +169,43 @@ class UNetAttentionBlock(nn.Module):
                               k.float() * scale)
         attn = torch.softmax(scores, dim=-1).to(v.dtype)
         out = torch.einsum("nhij,nhdj->nhdi", attn, v).reshape(n, c, t)
-        return x + self.proj_out(out)
+        return (h + self.proj_out(out)).reshape(x.shape)
 
 
 class Downsample(nn.Module):
-    def __init__(self, channels: int):
+    """Halves the signal: a stride-2 conv (padding 1), or without
+    ``use_conv`` a 2-wide average pool."""
+
+    def __init__(self, channels: int, use_conv: bool = True, dims: int = 1):
         super().__init__()
-        self.op = nn.Conv1d(channels, channels, 3, stride=2, padding=1)
+        self.op = (conv_nd(dims, channels, channels, 3, stride=2, padding=1)
+                   if use_conv else (nn.AvgPool1d, nn.AvgPool2d)[dims - 1](2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
 
 
 class Upsample(nn.Module):
-    def __init__(self, channels: int):
+    """Doubles the signal: a nearest-neighbour resize, then (with
+    ``use_conv``) a conv."""
+
+    def __init__(self, channels: int, use_conv: bool = True, dims: int = 1):
         super().__init__()
-        self.conv = nn.Conv1d(channels, channels, 3, padding=1)
+        self.conv = (conv_nd(dims, channels, channels, 3, padding=1)
+                     if use_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return x if self.conv is None else self.conv(x)
 
 
-class _Block(nn.ModuleList):
+class TimestepEmbedSequential(nn.ModuleList):
     """GLIDE's ``TimestepEmbedSequential``: each module gets what it
-    takes (the step embedding, the audio stream, or neither)."""
+    takes (the step embedding, the encoder's stream, or neither)."""
 
     def forward(self, h, emb, encoder_out):
         for layer in self:
-            if isinstance(layer, ResBlock1D):
+            if isinstance(layer, TimestepBlock):
                 h = layer(h, emb)
             elif isinstance(layer, UNetAttentionBlock):
                 h = layer(h, encoder_out)
@@ -132,42 +214,58 @@ class _Block(nn.ModuleList):
         return h
 
 
-class UNet1D(nn.Module):
-    """Input, middle and output blocks with skip concatenation, 1-D over
-    time, (N, C, T) in and out."""
+class UNet(nn.Module):
+    """GLIDE's ``UNetModel`` body (``unet.py:280-527``) without the step
+    entry: input, middle and output blocks with skip concatenation,
+    attention at the given downsample rates, (N, C, *spatial) in and out.
+    ``forward`` takes the step embedding (``model_channels`` wide).  The
+    decoder's UNet (JAX's ``UNet1D``) is ``dims=1``,
+    ``use_scale_shift_norm=True``; ``models/glide_unet.py::GlideUNet``
+    adds the step and label embeddings."""
 
     def __init__(self, in_channels: int, model_channels: int,
                  out_channels: int, num_res_blocks: int,
-                 attention_resolutions: Sequence[int], encoder_channels: int,
-                 channel_mult: Sequence[int] = (1, 2, 4, 8), num_heads: int = 1,
-                 dropout: float = 0.0):
+                 attention_resolutions: Sequence[int], dropout: float = 0.0,
+                 channel_mult: Sequence[int] = (1, 2, 4, 8),
+                 conv_resample: bool = True, dims: int = 2, num_heads: int = 1,
+                 num_head_channels: int = -1, num_heads_upsample: int = -1,
+                 use_scale_shift_norm: bool = False,
+                 resblock_updown: bool = False,
+                 encoder_channels: Optional[int] = None):
         super().__init__()
         mc, attn_res = model_channels, set(attention_resolutions)
+        if num_heads_upsample == -1:
+            num_heads_upsample = num_heads
 
-        def res(ch_in, ch_out):
-            return ResBlock1D(ch_in, mc, ch_out, dropout)
+        def res(ch, out, **kw):
+            return ResBlock(ch, mc, dropout, out, dims=dims,
+                            use_scale_shift_norm=use_scale_shift_norm, **kw)
 
-        def attn(ch):
-            return UNetAttentionBlock(ch, num_heads, encoder_channels)
+        def attn(ch, heads):
+            return UNetAttentionBlock(ch, heads, num_head_channels,
+                                      encoder_channels)
 
         ch = channel_mult[0] * mc
-        self.input_blocks = nn.ModuleList(
-            [_Block([nn.Conv1d(in_channels, ch, 3, padding=1)])])
+        self.input_blocks = nn.ModuleList([TimestepEmbedSequential(
+            [conv_nd(dims, in_channels, ch, 3, padding=1)])])
         chans, ds = [ch], 1
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
                 block = [res(ch, mult * mc)]
                 ch = mult * mc
                 if ds in attn_res:
-                    block.append(attn(ch))
-                self.input_blocks.append(_Block(block))
+                    block.append(attn(ch, num_heads))
+                self.input_blocks.append(TimestepEmbedSequential(block))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(_Block([Downsample(ch)]))
+                self.input_blocks.append(TimestepEmbedSequential(
+                    [res(ch, ch, down=True) if resblock_updown
+                     else Downsample(ch, conv_resample, dims)]))
                 chans.append(ch)
                 ds *= 2
 
-        self.middle_block = _Block([res(ch, ch), attn(ch), res(ch, ch)])
+        self.middle_block = TimestepEmbedSequential(
+            [res(ch, ch), attn(ch, num_heads), res(ch, ch)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(channel_mult))):
@@ -175,20 +273,22 @@ class UNet1D(nn.Module):
                 block = [res(ch + chans.pop(), mult * mc)]
                 ch = mult * mc
                 if ds in attn_res:
-                    block.append(attn(ch))
+                    block.append(attn(ch, num_heads_upsample))
                 if level and i == num_res_blocks:
-                    block.append(Upsample(ch))
+                    block.append(res(ch, ch, up=True) if resblock_updown
+                                 else Upsample(ch, conv_resample, dims))
                     ds //= 2
-                self.output_blocks.append(_Block(block))
+                self.output_blocks.append(TimestepEmbedSequential(block))
 
         self.out = nn.Sequential(
             group_norm(ch), nn.SiLU(),
-            zero_(nn.Conv1d(ch, out_channels, 3, padding=1)))
+            zero_(conv_nd(dims, ch, out_channels, 3, padding=1)))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                encoder_out: Optional[torch.Tensor]) -> torch.Tensor:
-        hs = []
-        h = x
+                encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (N, C, *spatial); emb: (N, model_channels); encoder_out:
+        (N, C_enc, T_enc)."""
+        hs, h = [], x
         for block in self.input_blocks:
             h = block(h, emb, encoder_out)
             hs.append(h)
@@ -214,7 +314,7 @@ def _pad_lengths(window_len: int, n_levels: int) -> Tuple[int, int]:
     return pad, pad
 
 
-class UNetAttn(UNet1D):
+class UNetAttn(UNet):
     """The decoder: memory[:, 0] is the diffusion-step token (through the
     time-embedding MLP; its width is model_channels, as in the reference's
     GLIDE), memory[:, 1:] is the audio stream used as encoder K/V.
@@ -226,7 +326,8 @@ class UNetAttn(UNet1D):
                  attention_resolutions: Sequence[int] = (1, 2, 4),
                  window_len: int = 40):
         super().__init__(d_x, d_model, d_out, n_layers, attention_resolutions,
-                         d_memory, channel_mult, heads, dropout)
+                         dropout, channel_mult, dims=1, num_heads=heads,
+                         use_scale_shift_norm=True, encoder_channels=d_memory)
         self.time_embed = nn.Sequential(nn.Linear(d_memory, d_model), nn.SiLU(),
                                         nn.Linear(d_model, d_model))
         self.pad = _pad_lengths(window_len, len(channel_mult) - 1)

@@ -53,6 +53,40 @@ def test_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+def test_package_imports_without_optional_libraries():
+    """``import gesture_diffusion_torch`` and every module of it, then the
+    mocap transforms and the HTML player on the CPU, in a process where a
+    meta-path finder refuses JAX, the JAX package, sklearn, matplotlib,
+    Pillow and IPython (the card's machine has none of the first five): the
+    stick figures and ``nb_play_mocap`` import theirs only when called.
+    (A None in sys.modules would not do: scipy looks jax up there.)"""
+    blocked = FORBIDDEN + ("sklearn", "matplotlib", "PIL", "IPython")
+    mods = [".".join(p.relative_to(REPO).with_suffix("").parts)
+            for p in _modules()]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    bvh = str(REPO / "tests" / "golden" / "toy_chain.bvh")
+    code = ("import sys, importlib\n"
+            "class Absent:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            f"        if name.split('.')[0] in {blocked!r}:\n"
+            "            raise ModuleNotFoundError(name)\n"
+            "sys.meta_path.insert(0, Absent())\n"
+            "import gesture_diffusion_torch\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in mods)
+            + "from gesture_diffusion_torch.data import mocap_transforms as mt, parse_bvh\n"
+            "from gesture_diffusion_torch.export import render_mocap_player_html\n"
+            f"track = parse_bvh({bvh!r})\n"
+            "pos = mt.MocapParameterizer('position', device='cpu').transform([track])\n"
+            "rt = mt.RootTransformer('pos_rot_deltas', 5, 2, device='cpu')\n"
+            "rt.inverse_transform(rt.transform([track]))\n"
+            "assert 'Charlie_Nub' in render_mocap_player_html(pos[0])\n"
+            f"assert not any(k.split('.')[0] in {blocked!r} for k in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from gesture_diffusion_torch.diffusion import make_diffusion
     from gesture_diffusion_torch.generation import Generator
@@ -80,6 +114,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert not ran
     cli.main(argv + ["--device", "cpu"])
     assert ran == [torch.device("cpu")]
+    # the mocap transforms that do rotation math
+    from gesture_diffusion_torch.data import mocap_transforms as mt
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.RootTransformer("pos_rot_deltas")
+    assert mt.RootTransformer("pos_rot_deltas", device="cpu").device.type == "cpu"
 
 
 def test_trainer_refuses_cpu_fallback(monkeypatch, tmp_path):

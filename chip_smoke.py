@@ -95,11 +95,24 @@ Phases (any failure raises and the script exits non-zero):
      the GLIDE UNet at glide-text2im's 64x64 base widths, the Primer-EZ
      encoder and decoder at the flagship decoder's, SEBottleneck at the
      trunk's last stage, each in float32 against float64 on the card;
-  13. print the kernels' JSON line and, last, the device line.
+  13. data parallelism on the one card (``multi_paths``, ``[multi-*]``):
+     the DDP trainer over NCCL at world size 1 against the plain trainer
+     (8 steps at batch 64, f32 and the bf16 encoder, and the ms a step of
+     each over 5 windows); two ranks over
+     gloo sharing cuda:0, spawned as subprocesses, one step of 32 rows each
+     against the one-process step on the global batch of 64 (phase 6's
+     bars), the loss-aware sampler's ragged gather; the Generator over
+     ``make_mesh(devices=[cuda:0, cuda:0])`` at batch 64 (DDIM, DDPM,
+     inpaint DDPM with the x0 blend) against the unsharded batch, 2
+     launches each, batch 3 unsharded, the stream against
+     ``generate_sequence`` over the mesh, the kernel at ``clip_base`` 0
+     and 32 against its plain version; the CLI's ``Train.world_size: 2``
+     refused on one card with ``make_mesh``'s error;
+  14. print the kernels' JSON line and, last, the device line.
 
-    python3 chip_smoke.py --only corpus tedexp decoders mocap zoo
+    python3 chip_smoke.py --only corpus tedexp decoders mocap zoo multi
 
-runs phases 8 to 12 alone (no kernel phases, no result line), to try
+runs phases 8 to 13 alone (no kernel phases, no result line), to try
 them.
 
 Needs CUDA; imports nothing of JAX.
@@ -1846,12 +1859,454 @@ def zoo_paths(smi, dev) -> dict:
     return out
 
 
+MULTI_BATCH, MULTI_STEPS = 64, 8
+# NCCL world 1 against the plain trainer, f32, TF32 off: the losses 1e-5;
+# the BN statistics phase 6's 1e-4 (per channel a sum over 2 M values,
+# centred two-pass here, cuDNN's own way there), the gradient norm phase
+# 6's 1e-3 (the SE-ResNet trunk's train-mode gradient amplifies the
+# BatchNorm's rounding); the parameters by mean|d| over their mean movement,
+# 1e-2, since Adam's step lr * m / (sqrt(v) + eps) turns the rounding of a
+# near-zero gradient (the trunk's ill-conditioned ones, the key dconv
+# biases' exact zeros) into a whole step of either sign
+MULTI_BAR, MULTI_PARAM_BAR = 1e-5, 1e-2
+# the bf16 encoder (the flagship's Train.encoder_dtype): the global
+# BatchNorm rounds some bf16 outputs apart from cuDNN's, which the trunk
+# amplifies; the losses within 2**-8 (bf16's unit roundoff), the BN
+# statistics, grad_norm and parameters within MULTI_BF16_RATIO times the
+# plain trainer's own bf16 distance from its f32 run on the same batches
+MULTI_BF16_LOSS_BAR, MULTI_BF16_RATIO = 2.0 ** -8, 2.0
+MULTI_WINDOWS = 5        # timed windows of MULTI_STEPS queued steps a side
+MULTI_TIMEOUT = 300      # s, the two gloo ranks together
+
+# one rank of [multi]'s two gloo ranks sharing a device: one step of its
+# half of the global batch (f32, TF32 off, the parent's mel of its rows),
+# the sampler's ragged gather, then MULTI_STEPS timed steps
+_MULTI_RANK = r"""
+import sys, time
+rank, port, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dev = __import__("torch").device(sys.argv[4])
+sys.path.insert(0, %(repo)r)
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from gesture_diffusion_torch.diffusion.resample import LossSecondMomentResampler
+from gesture_diffusion_torch.models import build_all, speech_encoder
+from gesture_diffusion_torch.parallel import active_group, init_distributed
+from gesture_diffusion_torch.training import make_optimizer, make_train_step
+from gesture_diffusion_torch.utils import JsonConfig
+
+assert init_distributed(f"localhost:{port}", 2, rank, backend="gloo",
+                        device=dev) == rank
+inp = torch.load(f"{work}/inputs.pt", weights_only=True)
+n = inp["pose"].shape[0] // 2
+rows = slice(rank * n, (rank + 1) * n)
+mel = inp["mel"][rows].to(dev)
+speech_encoder.speech_frontend = lambda w: mel
+cfg = JsonConfig(inp["config"])
+b = build_all(cfg, inp["d_pose"], device=dev, encoder_dtype=None)
+b.model.load_state_dict(inp["state"])
+step = make_train_step(b.model, b.schedule, *make_optimizer(b.model, cfg.Train))
+batch = {"pose": inp["pose"][rows].to(dev), "wav": inp["wav"][rows].to(dev)}
+m = step(batch, 0, t=inp["t"].to(dev), noise=inp["noise"].to(dev))
+out = {"metrics": {k: float(v) for k, v in m.items()},
+       "grads": {k: p.grad.detach().cpu().clone()
+                 for k, p in b.model.named_parameters()},
+       "stats": {k: v.detach().cpu().clone() for k, v in b.model.state_dict().items()
+                 if "running_" in k}}
+s = LossSecondMomentResampler(1000, history_per_term=2)
+g = np.random.default_rng(rank)
+for k in ((5, 3), (2, 0))[rank]:
+    s.update_with_local_losses(g.integers(0, 1000, k), g.gamma(2.0, 1.0, k))
+out["hist"] = torch.from_numpy(s._loss_history.copy())
+out["counts"] = torch.from_numpy(s._loss_counts.copy())
+ms = []
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+for i in range(%(steps)d):
+    sync()
+    t0 = time.perf_counter()
+    step(batch, 1 + i)
+    sync()
+    ms.append((time.perf_counter() - t0) * 1e3)
+out["ms"] = ms
+out["world"] = list(active_group())
+torch.save(out, f"{work}/out_{rank}.pt")
+torch.distributed.destroy_process_group()
+print("DONE", rank, flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def multi_paths(smi, dev, check) -> dict:
+    """Phase 13: data-parallel training and sharded serving on one card.
+    Returns the fused launches of its main paths by variant; raises on any
+    failed check."""
+    import signal
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gesture_diffusion_torch import cli
+    from gesture_diffusion_torch.diffusion import make_diffusion
+    from gesture_diffusion_torch.generation import Generator
+    from gesture_diffusion_torch.models import build_all, speech_encoder
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.parallel import init_distributed, make_mesh
+    from gesture_diffusion_torch.training import (Trainer, iter_batches,
+                                                  make_optimizer, make_train_step)
+    from gesture_diffusion_torch.utils import JsonConfig
+
+    cfg = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_multi_")
+    launches = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def bundle(encoder_dtype=None):
+        return build_all(cfg, D_POSE, device=dev, encoder_dtype=encoder_dtype,
+                         generator=torch.Generator().manual_seed(0))
+
+    # -- [multi-nccl]: the DDP path at world size 1 against the plain trainer
+    train_ds = synthetic_training_set(MULTI_BATCH * MULTI_STEPS, 90)
+    val_ds = synthetic_training_set(MULTI_BATCH, 91)
+    block = list(iter_batches(train_ds, MULTI_BATCH, shuffle=False))
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for enc in (None, "bfloat16"):
+            for label in ("plain", "nccl"):
+                if label == "nccl":
+                    init_distributed(f"localhost:{_free_port()}", 1, 0, device=dev)
+                    if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+                        raise AssertionError("world 1 on the card is not NCCL")
+                b = bundle(enc)
+                init = {k: v.detach().clone() for k, v in b.model.named_parameters()}
+                trainer = Trainer(b.model, b.schedule, *make_optimizer(b.model, cfg.Train),
+                                  train_ds, val_ds, MULTI_BATCH,
+                                  os.path.join(tmp.name, f"{label}_{enc}"), seed=0,
+                                  device=dev)
+                metrics = trainer.train_steps(block)
+                state = {k: v.detach().clone() for k, v in b.model.state_dict().items()}
+                windows = []
+                for _ in range(MULTI_WINDOWS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_steps(block)
+                    torch.cuda.synchronize()
+                    windows.append((time.perf_counter() - t0) * 1e3 / len(block))
+                runs[label, enc] = dict(
+                    loss=[float(m["loss"]) for m in metrics],
+                    norm=[float(m["grad_norm"]) for m in metrics],
+                    state=state, init=init, ms=windows)
+                if label == "nccl":
+                    dist.destroy_process_group()
+                del b, trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def distances(x, y):
+        """loss and grad_norm max rel over the steps, the BN statistics'
+        max|d|/max|ref|, the parameters' mean|d| over x's mean movement."""
+        moved = torch.cat([(x["state"][k] - v).abs().flatten()
+                           for k, v in x["init"].items()]).mean()
+        return dict(
+            loss=max(abs(p - q) / abs(p) for p, q in zip(x["loss"], y["loss"])),
+            norm=max(abs(p - q) / abs(p) for p, q in zip(x["norm"], y["norm"])),
+            bn=max(float((y["state"][k] - v).abs().max() / v.abs().max())
+                   for k, v in x["state"].items() if "running_" in k),
+            params=float(torch.cat([(y["state"][k] - x["state"][k]).abs().flatten()
+                                    for k in x["init"]]).mean() / moved))
+
+    def spread(ms):
+        return (f"median {float(np.median(ms)):.2f} (min {min(ms):.2f}, max "
+                f"{max(ms):.2f})")
+
+    f32 = distances(runs["plain", None], runs["nccl", None])
+    bf16 = distances(runs["plain", "bfloat16"], runs["nccl", "bfloat16"])
+    own = distances(runs["plain", "bfloat16"], runs["plain", None])
+    bars32 = dict(loss=MULTI_BAR, norm=TRAIN_NORM_BAR, bn=TRAIN_LOSS_BAR,
+                  params=MULTI_PARAM_BAR)
+    bars16 = {k: MULTI_BF16_RATIO * v for k, v in own.items()}
+    bars16["loss"] = MULTI_BF16_LOSS_BAR
+    for enc, found, bars in ((None, f32, bars32), ("bfloat16", bf16, bars16)):
+        a, b_ = runs["plain", enc], runs["nccl", enc]
+        ratio = float(np.median(b_["ms"]) / np.median(a["ms"]))
+        log(f"[multi-nccl] beat-ours encoder {enc or 'f32'} (TF32 off, cuDNN "
+            f"deterministic), batch {MULTI_BATCH}, {MULTI_STEPS} steps from the "
+            f"same weights and batches: DDP over NCCL at world size 1 against the "
+            f"plain trainer: "
+            + ", ".join(f"{k} {v:.3e} (bar {bars[k]:.2e})" for k, v in found.items())
+            + f" (loss, grad_norm: max rel; BN running statistics: max|d|/max|ref|; "
+            f"parameters: mean|d| over their mean movement); ms a step, "
+            f"{MULTI_WINDOWS} windows of {MULTI_STEPS} steps queued, one "
+            f"synchronise each: plain {spread(a['ms'])}, DDP {spread(b_['ms'])} "
+            f"({ratio:.3f}x the median: what DDP costs on one card) [{smi}]")
+        log(f"[multi-nccl]   losses plain: " + " ".join(f"{x:.5f}" for x in a["loss"])
+            + "; DDP: " + " ".join(f"{x:.5f}" for x in b_["loss"]))
+        if any(found[k] > bars[k] for k in found):
+            raise AssertionError(f"DDP at world size 1 is off the plain trainer "
+                                 f"(encoder {enc or 'f32'})")
+    log(f"[multi-nccl] the bf16 bars' base, the plain bf16 trainer against the "
+        f"plain f32 one: " + ", ".join(f"{k} {v:.3e}" for k, v in own.items()))
+
+    # -- [multi-gloo]: two ranks sharing cuda:0, one step at batch 64 -----
+    b = bundle()
+    state = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
+    ds = synthetic_training_set(MULTI_BATCH, 92)
+    batch = {k: torch.from_numpy(v) for k, v in ds.data.items()}
+    g = torch.Generator().manual_seed(93)
+    t = torch.randint(0, b.schedule.num_timesteps, (MULTI_BATCH,), generator=g)
+    noise = torch.randn(batch["pose"].shape, generator=g)
+    mel = speech_encoder.speech_frontend(batch["wav"].to(dev)).float()
+    work = tmp.name
+    torch.save({"config": cfg.to_dict(), "d_pose": D_POSE, "state": state,
+                "pose": batch["pose"], "wav": batch["wav"], "t": t,
+                "noise": noise, "mel": mel.cpu()}, os.path.join(work, "inputs.pt"))
+    port = _free_port()
+    script = _MULTI_RANK % {"repo": REPO, "steps": MULTI_STEPS}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(port), work,
+                               str(dev)],
+                              cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MULTI_TIMEOUT))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+        raise AssertionError(f"the two gloo ranks did not end in {MULTI_TIMEOUT} s")
+    spawn_s = time.perf_counter() - t0
+    for p, (_, err) in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"a gloo rank failed (exit {p.returncode}):\n"
+                                 f"{err[-4000:]}")
+    outs = [torch.load(os.path.join(work, f"out_{r}.pt"), weights_only=True)
+            for r in range(2)]
+
+    # the one-process step on the global batch, f32 and f64, the same mel
+    ref = {}
+    frontend = speech_encoder.speech_frontend
+    speech_encoder.speech_frontend = lambda w: mel
+    try:
+        for dtype in (torch.float32, torch.float64):
+            model = bundle().model
+            model.load_state_dict(state)
+            model.to(dtype)
+            step = make_train_step(model, b.schedule, *make_optimizer(model, cfg.Train))
+            m = step({"pose": batch["pose"].to(dev, dtype), "wav": batch["wav"].to(dev)},
+                     0, t=t.to(dev), noise=noise.to(dev, dtype))
+            ref[dtype] = ({k: float(v) for k, v in m.items()},
+                          {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                          {k: v.detach().cpu().float() for k, v in model.state_dict().items()
+                           if "running_" in k})
+            del model, step
+    finally:
+        speech_encoder.speech_frontend = frontend
+    (m32, g32, s32), (_, g64, _) = ref[torch.float32], ref[torch.float64]
+    o = outs[0]
+    loss_d = abs(o["metrics"]["loss"] - m32["loss"]) / abs(m32["loss"])
+    norm_d = abs(o["metrics"]["grad_norm"] - m32["grad_norm"]) / m32["grad_norm"]
+    bn_d = max(float((o["stats"][k] - v).abs().max() / v.abs().max())
+               for k, v in s32.items())
+    top = max(float(v.abs().max()) for v in g32.values())
+    outside = max((float((o["grads"][k] - v).abs().max())
+                   / max(float(v.abs().max()), 1e-2 * top), k)
+                  for k, v in g32.items() if not k.startswith(TRUNK))
+
+    def trunk_err(grads):
+        return max(float((grads[k].double() - g64[k]).abs().max() / g64[k].abs().max())
+                   for k in g64 if k.startswith(TRUNK))
+
+    ranks_err, single_err = trunk_err(o["grads"]), trunk_err(g32)
+    same_ranks = all(torch.equal(outs[0]["grads"][k], outs[1]["grads"][k])
+                     for k in outs[0]["grads"])
+    hist_equal = (torch.equal(outs[0]["hist"], outs[1]["hist"])
+                  and torch.equal(outs[0]["counts"], outs[1]["counts"]))
+    ms = [float(np.median(x["ms"])) for x in outs]
+    log(f"[multi-gloo] beat-ours f32 (TF32 off), global batch {MULTI_BATCH}: two "
+        f"ranks of {MULTI_BATCH // 2} over gloo, both on {dev} (subprocesses, "
+        f"{spawn_s:.1f} s with start-up), one step against the one-process step "
+        f"on the same global batch, t, noise and mel: loss rel {loss_d:.2e}, "
+        f"grad_norm rel {norm_d:.2e}, BN max|d|/max|ref| {bn_d:.2e} (bar "
+        f"{TRAIN_LOSS_BAR:.0e}); worst gradient outside the trunk "
+        f"{outside[0]:.2e} of max|g| ({outside[1]}; bar {TRAIN_GRAD_BAR:.0e}); the "
+        f"trunk's f32 against f64: two ranks {ranks_err:.2e}, one process "
+        f"{single_err:.2e} (bar {TRAIN_TRUNK_RATIO:g}x); the ranks' gradients "
+        f"equal: {same_ranks}; world {outs[0]['world']} [{smi}]")
+    log(f"[multi-gloo] the loss-aware sampler after the ragged gather (5 + 2 "
+        f"then 3 + 0 pairs): histories bit-equal on both ranks: {hist_equal}, "
+        f"{int(outs[0]['counts'].sum())} entries; ms a step, two ranks sharing "
+        f"one card (correctness and overhead, not a scaling number): rank 0 "
+        f"{ms[0]:.1f}, rank 1 {ms[1]:.1f} median of {MULTI_STEPS} "
+        f"synchronised steps [{smi}]")
+    if (loss_d > TRAIN_LOSS_BAR or bn_d > TRAIN_LOSS_BAR or norm_d > TRAIN_NORM_BAR
+            or outside[0] > TRAIN_GRAD_BAR
+            or ranks_err > TRAIN_TRUNK_RATIO * single_err
+            or not same_ranks or not hist_equal or outs[0]["world"] != [0, 2]):
+        raise AssertionError("two gloo ranks are off the one-process step")
+
+    # -- [multi-serve]: the Generator over a mesh of two shards on one card
+    mesh = make_mesh(devices=[dev, dev])
+    serve = {}
+    for mt in ("s2g_v2", "inpaint"):
+        cfg_t = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
+        cfg_t.set("Model.type", mt)
+        bt = build_all(cfg_t, D_POSE, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+        serve[mt] = (Generator(bt.model, bt.eval_schedule, bt.eval_timestep_map,
+                               mesh=mesh),
+                     Generator(bt.model, bt.eval_schedule, bt.eval_timestep_map,
+                               device=dev))
+    wav = seeded_audio(94, MULTI_BATCH, WINDOW / FPS)
+    gen_noise = torch.Generator(device=dev).manual_seed(95)
+    ip = torch.zeros(MULTI_BATCH, WINDOW, D_POSE, device=dev)
+    ip[:, :SEED_LEN] = 0.5 * torch.randn(MULTI_BATCH, SEED_LEN, D_POSE,
+                                         generator=gen_noise, device=dev)
+    im = torch.zeros(MULTI_BATCH, WINDOW, 1, device=dev)
+    im[:, :SEED_LEN] = 1.0
+    blend = dict(inpaint_poses=ip, inpaint_masks=im, trans_factor=TRANS_FACTOR,
+                 pose_seed_len=SEED_LEN)
+    real_cuda = fs._fused_ddim_cuda
+    for variant, mt, alg, kw in (("ddim", "s2g_v2", "ddim", {}),
+                                 ("stochastic", "s2g_v2", "ddpm", {}),
+                                 ("x_add", "inpaint", "ddpm", blend)):
+        sharded, whole = serve[mt]
+        results = {}
+        for forced in (None, 2):
+            if forced is not None:
+                fs._fused_ddim_cuda = lambda *a, **k: real_cuda(*a, **k, cluster=forced)
+            try:
+                for name, gen in (("sharded", sharded), ("whole", whole)):
+                    fs.launches = 0
+                    t0 = time.perf_counter()
+                    out = gen.generate_sample(
+                        wav, D_POSE, WINDOW, sample_alg=alg,
+                        generator=torch.Generator(device=dev).manual_seed(96), **kw)
+                    torch.cuda.synchronize()
+                    results[name, forced] = (out, fs.launches, fs.last_cluster,
+                                             (time.perf_counter() - t0) * 1e3)
+                    launches[variant] = launches.get(variant, 0) + fs.launches
+            finally:
+                fs._fused_ddim_cuda = real_cuda
+        r = rel(results["sharded", None][0], results["whole", None][0])
+        exact = torch.equal(results["sharded", 2][0], results["whole", 2][0])
+        n_sh = results["sharded", None][1]
+        log(f"[multi-serve] {mt} {alg}{' x0-blend' if kw else ''}, batch "
+            f"{MULTI_BATCH} over make_mesh(devices=[{dev}, {dev}]), 1000 steps: "
+            f"sharded {results['sharded', None][3]:.1f} ms ({n_sh} kernel launches, "
+            f"clusters of {results['sharded', None][2]}), unsharded "
+            f"{results['whole', None][3]:.1f} ms (clusters of "
+            f"{results['whole', None][2]}); max|d|/max|ref| {r:.3e} at the planned "
+            f"C (bar {KERNEL_BAR:.0e}); bit-equal at forced C=2: {exact} [{smi}]")
+        if n_sh != 2 or results["whole", None][1] != 1 or r > KERNEL_BAR or not exact:
+            raise AssertionError(f"the sharded {mt} {alg} sample is off the "
+                                 "unsharded one or did not launch twice")
+    sharded, whole = serve["s2g_v2"]
+    fs.launches = 0
+    three = sharded.generate_sample(wav[:3], D_POSE, WINDOW,
+                                    generator=torch.Generator(device=dev).manual_seed(97))
+    torch.cuda.synchronize()
+    n3 = fs.launches
+    launches["ddim"] += n3
+    log(f"[multi-serve] batch 3 does not divide over 2 shards: {n3} launch "
+        f"(unsharded on the first device), output {tuple(three.shape)}")
+    if n3 != 1 or not torch.isfinite(three).all():
+        raise AssertionError("batch 3 did not run unsharded")
+
+    # the stream over the mesh against generate_sequence over it, 2 x 10 s
+    wav_long = seeded_audio(98, 2, 10.0)
+    noises = [torch.randn(2, WINDOW, D_POSE, generator=gen_noise, device=dev)
+              for _ in range(7)]
+    kw = dict(noise_fn=lambda b0, d: noises[d], trans_factor=TRANS_FACTOR,
+              mesh=mesh)
+    fs.launches = 0
+    offline = whole.generate_sequence(wav_long, SR, D_POSE, FPS, WINDOW, SEED_LEN, **kw)
+    n_off = fs.launches
+    fs.launches = 0
+    stream = whole.stream(SR, D_POSE, FPS, WINDOW, SEED_LEN, **kw)
+    chunks = []
+    for i in range(0, wav_long.shape[1], SR // 2):
+        chunks.extend(stream.push(wav_long[:, i:i + SR // 2]))
+    chunks.extend(stream.flush())
+    n_str = fs.launches
+    launches["ddim"] += n_off + n_str
+    streamed = np.concatenate(chunks, axis=1)
+    same = streamed.shape == offline.shape and np.array_equal(streamed, offline)
+    log(f"[multi-serve] stream(mesh=) against generate_sequence(mesh=), 2 x 10 s: "
+        f"equal exactly: {same}; launches {n_str} and {n_off} (7 windows x 2 "
+        f"shards)")
+    if not same or n_str != 14 or n_off != 14:
+        raise AssertionError("the stream over the mesh differs from "
+                             "generate_sequence over it")
+
+    # the kernel at clip_base 0 and > 0 against its plain version, and the
+    # shard's z against the whole batch's
+    s50, t50 = make_diffusion("linear", 1000, "ddim50")
+    g50 = Generator(serve["s2g_v2"][1].model, s50, t50, device=dev)
+    wav_t = torch.from_numpy(seeded_audio(99, MULTI_BATCH, WINDOW / FPS)).to(dev)
+    noise50 = torch.randn(MULTI_BATCH, WINDOW, D_POSE, generator=gen_noise, device=dev)
+    with torch.no_grad():
+        args = g50.fused_args(wav_t, D_POSE, WINDOW, noise50, sample_alg="ddpm",
+                              seed=torch.tensor([4321], device=dev))
+    half = MULTI_BATCH // 2
+    for base in (0, half):
+        shard = dict(args, clip_base=base)
+        for k in ("x_T", "mem_rows"):
+            shard[k] = args[k][base:base + half].contiguous()
+        check("stochastic", f"batch {half} DDPM, clip_base {base}", shard)
+    with torch.no_grad():
+        one = dict(args, tmap=args["tmap"][:1], num_steps=1, coefs=torch.tensor(
+            [[0.0, 0.0, 0.0, 0.0, 1.0]], device=dev), clip_base=half,
+            x_T=args["x_T"][half:].contiguous(), mem_rows=args["mem_rows"][half:].contiguous())
+        z = fs.fused_ddim_sample(**one)
+        whole_z = fs.fused_noise(torch.tensor([4321], device=dev), 0, MULTI_BATCH,
+                                 WINDOW, z.shape[2], dev)
+    z_same = torch.equal(z, whole_z[half:])
+    log(f"[multi-serve] the kernel's z at clip_base {half} equals the whole "
+        f"batch's z of clips {half}..{MULTI_BATCH - 1} bit for bit: {z_same}")
+    if not z_same:
+        raise AssertionError("clip_base does not continue the batch's noise")
+
+    # -- [multi-cli]: Train.world_size on a one-card machine -------------
+    cfg2 = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
+    cfg2.set("Train.world_size", 2)
+    cfg2.set("Meta.seed", 0)
+    try:
+        cli.train_model(cfg2, device=dev)
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError("Train.world_size 2 trained on one card")
+    auto = cli.world_size(cfg, dev)
+    log(f"[multi-cli] Train.world_size 2 with {torch.cuda.device_count()} GPU: "
+        f"ValueError {message!r}; \"auto\" -> {auto} process (phase 7's train ran "
+        f"it in this one)")
+    if "needs 2 devices, have 1" not in message or auto != torch.cuda.device_count():
+        raise AssertionError("the CLI's world_size is not make_mesh's")
+    tmp.cleanup()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", nargs="+",
-                        choices=("corpus", "tedexp", "decoders", "mocap", "zoo"),
+                        choices=("corpus", "tedexp", "decoders", "mocap", "zoo",
+                                 "multi"),
                         help="run only these phases (no kernel phases; "
                         "corpus builds the kernel for its gen) and print no "
                         "result line: for trying a phase")
@@ -1881,6 +2336,8 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             if name == "corpus":
                 corpus_paths(smi, make_check({}, {}))
+            elif name == "multi":
+                multi_paths(smi, dev, make_check({}, {}))
             else:
                 {"tedexp": tedexp_paths, "decoders": decoder_paths,
                  "mocap": mocap_paths, "zoo": zoo_paths}[name](smi, dev)
@@ -2224,6 +2681,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     zoo_paths(smi, dev)
     log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 13: data parallelism and the sharded Generator -----------------
+    t0 = time.perf_counter()
+    for variant, count in multi_paths(smi, dev, check).items():
+        launches[variant] += count
+    log(f"[multi] phase took {time.perf_counter() - t0:.1f} s")
 
     what = {
         "ddim": ("fused_ddim_sample", f"{TPU_KERNEL}:705",

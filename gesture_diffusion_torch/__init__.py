@@ -18,7 +18,10 @@ never imports).  Layout mirrors the reference package:
   * ``generation/`` the serving ``Generator`` (the fused kernel for the
                     oneway decoder, the scan sampler for the others) and
                     ``GestureStream``, the beat metrics, the FGD evaluator;
-  * ``training/``   losses, AdamW, schedules, checkpoints, the ``Trainer``;
+  * ``training/``   losses, AdamW, schedules, checkpoints, the ``Trainer``
+                    (one process, or one rank of a data-parallel group);
+  * ``parallel/``   process groups (NCCL on the card, gloo on the CPU) and
+                    the data-axis device mesh of training and serving;
   * ``interop/``    weights carried across from the JAX package;
   * ``cli.py``      the phase CLI (prep, data, train, eval, eval-time, gen).
 

@@ -25,11 +25,23 @@ Differences by design:
   * the FGD embedding net (``Eval.fgd``) is a torch file beside the
     configured path, with its suffix replaced by ``.pt``; a JAX
     ``.msgpack`` net there raises rather than being trained over.
+
+Data parallelism (``Train.world_size``): ``train`` with N > 1 spawns N
+ranks (``torch.multiprocessing``, "spawn"), rank r on ``cuda:r`` over
+NCCL, or on the CPU over gloo with ``--device cpu``; "auto" is every
+visible GPU on the card and 1 on the CPU; N above the GPUs raises
+``make_mesh``'s error.  Under ``torchrun`` each process joins the group
+from torchrun's variables and trains on its local GPU; a number in
+``Train.world_size`` must then be torchrun's.  A rank that
+fails ends the others and the CLI exits non-zero.  In eval, eval-time
+and gen a process that sees more than one GPU samples over a mesh of
+them (``Generator(mesh=...)``).
 """
 
 import json
 import os
 import pickle
+import socket
 import time
 from argparse import ArgumentParser
 
@@ -48,6 +60,8 @@ from gesture_diffusion_torch.generation.fgd import (EmbeddingSpaceEvaluator,
                                                     load_or_train_motion_ae)
 from gesture_diffusion_torch.models import build_all
 from gesture_diffusion_torch.models.factory import SUPPORTED_DECODERS
+from gesture_diffusion_torch.parallel import (active_group, init_distributed,
+                                              is_main_process, make_mesh)
 from gesture_diffusion_torch.training import (MetricsLogger, Trainer,
                                               checkpoint_path, load_checkpoint,
                                               make_optimizer, steps_per_epoch)
@@ -64,11 +78,10 @@ def refuse_unported(config) -> None:
             f"Train.dtype={train.get('dtype')!r} (the whole model in that "
             "dtype) is not ported; the port has Train.encoder_dtype only")
     world = train.get("world_size", "auto")
-    if world not in (1, "1", "auto"):
+    if world != "auto" and not (str(world).isdigit() and int(world) >= 1):
         raise ValueError(
-            f"Train.world_size={world!r}: the port trains on one GPU until "
-            "multi-GPU training is ported (ROADMAP queue 1 item 7); use 1 "
-            "or \"auto\"")
+            f"Train.world_size={world!r}: give \"auto\" or a number of "
+            "processes, one per device")
     model = config.get("Model") or {}
     decoder = (model.get("Decoder") or {}).get("type")
     if decoder is not None and decoder not in SUPPORTED_DECODERS:
@@ -185,9 +198,97 @@ def _log_dir(config) -> str:
     return os.path.join(config.Meta.log_dir, config.Meta.name)
 
 
+def world_size(config, device: torch.device) -> int:
+    """``Train.world_size``: "auto" is every visible GPU on the card and
+    one process on the CPU."""
+    world = config.Train.get("world_size", "auto")
+    if world == "auto":
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    return int(world)
+
+
+def train_mesh(world: int, device: torch.device):
+    """The data axis of ``world`` ranks: the visible GPUs in order (more
+    ranks than GPUs raises ``make_mesh``'s error), or ``world`` CPU
+    processes."""
+    devices = None if device.type == "cuda" else [device] * world
+    return make_mesh(n_data=world, devices=devices)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _train_rank(rank: int, raw_config: dict, devices: list, port: int) -> None:
+    """One rank of a spawned data-parallel run, on ``devices[rank]``."""
+    from torch.distributed import destroy_process_group
+
+    config = JsonConfig(raw_config)
+    dev = torch.device(devices[rank])
+    if dev.type == "cpu":
+        # the ranks share this process's share of the host's cores
+        # (OMP_NUM_THREADS or every core); more threads than cores make
+        # every collective wait for a descheduled thread
+        torch.set_num_threads(max(1, torch.get_num_threads() // len(devices)))
+    init_distributed(f"localhost:{port}", len(devices), rank, device=dev)
+    np.random.seed(config.Meta.seed % 2 ** 32)
+    torch.manual_seed(config.Meta.seed)
+    try:
+        _train(config, dev)
+    finally:
+        destroy_process_group()
+
+
+def _join_torchrun(config, dev: torch.device) -> torch.device:
+    """Under torchrun: join its group and return this rank's device (its
+    local GPU, or the CPU).  ``Train.world_size`` must be "auto" or
+    torchrun's ``WORLD_SIZE``."""
+    world = config.Train.get("world_size", "auto")
+    launched = int(os.environ["WORLD_SIZE"])
+    if world != "auto" and int(world) != launched:
+        raise ValueError(
+            f"Train.world_size={world!r} but torchrun launched {launched} "
+            "processes; give \"auto\" or the same number")
+    if active_group() is None:
+        init_distributed(device=None if dev.type == "cuda" else dev)
+    if is_main_process():
+        # build (and cache) the windowed data once, before the other ranks
+        # read it
+        load_datasets(config)
+    torch.distributed.barrier()
+    if dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def train_model(config, device=None):
     refuse_unported(config)
     dev = resolve_device(device)
+    if "WORLD_SIZE" in os.environ:
+        return _train(config, _join_torchrun(config, dev))
+    world = world_size(config, dev)
+    mesh = train_mesh(world, dev)
+    if world == 1:
+        return _train(config, dev)
+    # the ranks load the data themselves; load (and cache) it once here so
+    # that they do not build the windowed arrays concurrently
+    load_datasets(config)
+    import torch.multiprocessing as mp
+
+    print(f"[Info] Data parallel over {world} ranks: "
+          f"{', '.join(str(d) for d in mesh.devices)}")
+    # join=True: the first rank to fail ends the others and raises here
+    mp.start_processes(_train_rank, nprocs=world, join=True,
+                       start_method="spawn",
+                       args=(config.to_dict(), [str(d) for d in mesh.devices],
+                             _free_port()))
+
+
+def _train(config, dev: torch.device) -> None:
+    """Train in this process on ``dev``: alone, or as one rank of the
+    active process group."""
     train_ds, val_ds, _ = load_datasets(config)
     d_pose = train_ds.get_dims()["d_pose"]
     bundle = build_all(config, d_pose, device=dev,
@@ -219,7 +320,8 @@ def train_model(config, device=None):
         parse_steps(config.Train.get("early_stop_threshold_in_step",
                                      config.Train.max_training_steps))
         / per_epoch))
-    print(f"[Info] Max epochs: {max_epochs} | Early stop (epochs): {early_stop}")
+    trainer._print(f"[Info] Max epochs: {max_epochs} | Early stop (epochs): "
+                   f"{early_stop}")
     trainer.train(max_epochs, early_stop)
 
 
@@ -247,8 +349,16 @@ def load_eval_objs(config, device=None):
                                  map_location=dev)
     variables = {**tree["best_params"], **{
         k: v for k, v in tree["model"].items() if _is_bn_stat(k)}}
+    # a process that sees more than one GPU samples over all of them: one
+    # kernel instance per GPU; a batch that does not divide (eval-time's
+    # batch of 1) runs on the first
+    mesh = None
+    if (dev.type == "cuda" and dev.index in (None, 0)
+            and torch.cuda.device_count() > 1 and active_group() is None):
+        mesh = make_mesh()
     generator = Generator(bundle.model, bundle.eval_schedule,
-                          bundle.eval_timestep_map, device=dev)
+                          bundle.eval_timestep_map,
+                          device=None if mesh else dev, mesh=mesh)
     generator.update_variables(variables)
     return meta, test_ds, generator
 

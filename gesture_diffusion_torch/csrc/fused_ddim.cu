@@ -86,12 +86,15 @@
 // word, high word) and counter = ((r / 2) * Dp + n, s, clip, 0): words 0, 1
 // serve the even row of the pair, words 2, 3 the odd one.  u = top 23 bits
 // / 2^23, z = sqrt(-2 log(max(u1, 1e-12))) cos(2 pi u2).  clip is the
-// cluster's index, so the noise does not depend on C.
+// cluster's index plus clip_base, so the noise does not depend on C, and a
+// launch over clips [c0, c0 + n) of a larger batch (one shard of a batch
+// split over devices) draws with clip_base = c0 what the whole batch's
+// launch draws for them.
 //
 // The seed is read from device memory, so a caller that drew it on the
 // card hands it over without a host round trip.
 //
-// C interface (ctypes): fused_ddim_launch(ptrs, 35, dims, 13, stream)
+// C interface (ctypes): fused_ddim_launch(ptrs, 35, dims, 14, stream)
 // returns the launch's error (cudaLaunchKernelEx with the cluster
 // dimension; a refused launch is returned, never retried another way);
 // fused_ddim_cluster_size gives the host's choice of C.
@@ -119,7 +122,7 @@ typedef __nv_bfloat16 bf16;
 #define LN_EPS 1e-6f
 #define MAXC 8               // blocks per cluster: the portable limit
 #define N_PTRS 35
-#define N_DIMS 13
+#define N_DIMS 14
 
 struct Params {
   const float* x_T;  float* out;
@@ -136,6 +139,7 @@ struct Params {
   const bf16* ff_w1;  const bf16* ff_b1;  const bf16* ff_w2;  const bf16* ff_b2;
   const bf16* w_out;  const float* b_out;
   int n, t, nm, d, dp, f, layers, heads, steps, fc, half, stochastic, cluster;
+  int clip_base;
 };
 
 // Shared-memory plan (bytes); mirrored by ops/fused_sampler.py::smem_bytes.
@@ -847,7 +851,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params p) {
     matmul(cx, za, L.lda, L.mtx, p.w_out, D, D, DP,
            EpiUpdate{xs, p.b_out, ba, bb, cf[0], cf[1], cf[2], cf[3], cf[4], T, DP,
                      p.stochastic, (uint32_t)seed, (uint32_t)(seed >> 32),
-                     (uint32_t)s, (uint32_t)clip});
+                     (uint32_t)s, (uint32_t)(p.clip_base + clip)});
     csync(C);
   }
   // no block leaves while another may still write into its shared memory
@@ -945,7 +949,7 @@ extern "C" int fused_ddim_launch(void** ptrs, int n_ptrs, const int* dims,
   p.n = dims[0];  p.t = dims[1];  p.nm = dims[2];  p.d = dims[3];
   p.dp = dims[4]; p.f = dims[5];  p.layers = dims[6];  p.heads = dims[7];
   p.steps = dims[8];  p.fc = dims[9];  p.half = dims[10];
-  p.stochastic = dims[11];  p.cluster = dims[12];
+  p.stochastic = dims[11];  p.cluster = dims[12];  p.clip_base = dims[13];
 
   const int dk = p.heads > 0 ? p.d / p.heads : 0;
   const int c = p.cluster;
@@ -955,7 +959,8 @@ extern "C" int fused_ddim_launch(void** ptrs, int n_ptrs, const int* dims,
       p.fc < STRIP || p.f % p.fc || p.steps < 1 || p.layers < 1 ||
       p.kv == nullptr || (p.stochastic && p.seed == nullptr) ||
       c < 1 || c > MAXC || (c & (c - 1)) || p.heads % c ||
-      (long long)p.n * c > 0x7fffffffLL)
+      (long long)p.n * c > 0x7fffffffLL || p.clip_base < 0 ||
+      (long long)p.clip_base + p.n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(p.t, p.d, p.dp, p.fc, p.half);
   if (L.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;

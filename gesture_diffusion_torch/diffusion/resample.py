@@ -1,22 +1,50 @@
 """Timestep schedule samplers, drawn on the host with numpy.
 
-Port of ``gesture_diffusion_tpu/diffusion/resample.py`` for one process:
-``UniformSampler`` and the loss-aware ``LossSecondMomentResampler``, which
-importance-samples t by the RMS of each timestep's recent losses.  The
-trainer draws t with ``sample_np`` and feeds the per-example losses back
-through ``update_with_local_losses``.  ``allgather`` (one host-local array
--> the list of every process's array) is injectable; the default is the
-identity of a single process.  The multi-process gather comes with
-multi-GPU training.
+Port of ``gesture_diffusion_tpu/diffusion/resample.py``: ``UniformSampler``
+and the loss-aware ``LossSecondMomentResampler``, which importance-samples
+t by the RMS of each timestep's recent losses.  The trainer draws t with
+``sample_np`` and feeds the per-example losses back through
+``update_with_local_losses``, which gathers every process's (t, loss)
+pairs and applies the same update on each, so the histories, the weights
+and the next draw stay equal across processes.  ``allgather`` (one
+process-local array -> the list of every process's array, in rank order)
+is injectable; the default is ``torch.distributed``'s over the active
+group, and the identity without one.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import active_group, collective_device
 
 
-def _single_process_gather(x: np.ndarray):
-    return [x]
+def _default_allgather(x: np.ndarray):
+    """Every process's array, in rank order (the identity for one
+    process).  The lengths may differ: they are gathered first, each
+    array is padded to the longest for the gather, and the padding is
+    stripped after it, as the JAX package's gather does."""
+    group = active_group()
+    if group is None or group[1] == 1:
+        return [x]
+    world = group[1]
+    dev = collective_device()
+    x = np.asarray(x)
+    length = torch.tensor([len(x)], dtype=torch.int64, device=dev)
+    lengths = [torch.empty_like(length) for _ in range(world)]
+    dist.all_gather(lengths, length)
+    lengths = [int(v) for v in lengths]
+    longest = max(lengths)
+    if longest == 0:
+        return [x for _ in range(world)]
+    padded = np.zeros((longest,) + x.shape[1:], x.dtype)
+    padded[:len(x)] = x
+    local = torch.from_numpy(padded).to(dev)
+    parts = [torch.empty_like(local) for _ in range(world)]
+    dist.all_gather(parts, local)
+    return [p[:n].cpu().numpy() for p, n in zip(parts, lengths)]
 
 
 class UniformSampler:
@@ -64,7 +92,7 @@ class LossSecondMomentResampler:
         """Gather every process's (t, loss) pairs as one (n, 2) float64
         array and apply the same update everywhere, so the histories of all
         processes stay equal."""
-        gather = allgather if allgather is not None else _single_process_gather
+        gather = allgather if allgather is not None else _default_allgather
         pairs = np.stack([np.asarray(local_ts, np.float64),
                           np.asarray(local_losses, np.float64)], axis=1)
         gathered = np.concatenate([np.asarray(a).reshape(-1, 2)

@@ -27,6 +27,18 @@ inpaint) and both sampling algorithms (ddim, ddpm):
   * ``eval_infer_time`` — warm-up, then timed reps that end in a
     device synchronise.
 
+Over a device mesh (``parallel.make_mesh``, the data axis only) the fused
+path splits each batch into one shard per device: each device holds its
+own copy of the packed weights, token table and coefficients and samples
+its clips in one kernel launch, with no collectives (clips are
+independent), and the outputs are gathered on the mesh's first device.
+The launches are queued without a synchronise between them, so on
+distinct GPUs they overlap.  A shard draws the unsharded batch's DDPM
+noise for its clips (the kernel's ``clip_base``), so the sharded output is
+the unsharded one's.  A batch that does not divide runs unsharded on the
+first device; the scan path and ``eval_bpd`` run there too, as the JAX
+Generator's do.
+
 Unlike the JAX Generator there is no silent fallback: for a oneway model
 with ``use_fused=True`` every batch goes through the kernel on the card
 (or its plain version for a CPU Generator), and a kernel that cannot run
@@ -58,6 +70,7 @@ from ..models.attention import sinusoidal_position_encoding
 from ..models.denoiser import GestureDenoiser
 from ..ops.fused_sampler import (ddim_coefficients, ddpm_coefficients,
                                  fused_ddim_sample, pack_oneway_denoiser)
+from ..parallel.mesh import Mesh, replicate, split_batch
 from ..utils.device import resolve_device
 
 
@@ -94,6 +107,23 @@ def crossfade_head(x: np.ndarray, prev_tail: np.ndarray,
     return np.concatenate([head, x[:, seed_len:]], axis=1)
 
 
+def check_data_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` unless it has an axis other than "data" of size above 1:
+    each device would run a duplicate kernel instance."""
+    if mesh is None:
+        return None
+    if "data" not in mesh.shape:
+        raise ValueError(f"Generator mesh needs a 'data' axis, got "
+                         f"{dict(mesh.shape)}")
+    extra = {k: v for k, v in mesh.shape.items() if k != "data" and v > 1}
+    if extra:
+        raise ValueError(
+            f"Generator mesh must be data-only; non-trivial axes {extra} "
+            "would run duplicate kernel instances. Pass a mesh whose only "
+            "axis > 1 is 'data'.")
+    return mesh
+
+
 def make_trans_ramp(trans_factor: Optional[float], pose_seed_len: int,
                     window_len: int) -> Optional[np.ndarray]:
     """(1, T, 1) per-frame seed-adherence ramp: trans_factor -> 1 over the
@@ -116,6 +146,7 @@ class Generator:
         use_fused: bool = True,
         fused_dtype: Optional[torch.dtype] = None,
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         """:param use_fused: sample a oneway model through the fused kernel
         (the default); False is the caller's explicit choice of a scan
@@ -123,7 +154,16 @@ class Generator:
         scan sampler, whatever ``use_fused`` says.
         :param fused_dtype: weight and product-operand dtype of the fused
         path (bfloat16 by default; the CUDA kernel takes only bfloat16).
-        :param device: the card unless ``"cpu"`` is asked for."""
+        :param device: the card unless ``"cpu"`` is asked for.
+        :param mesh: a data-axis mesh to split the fused path's batches
+        over (module docstring); the model and every other path live on
+        its first device, which ``device``, if given, must be."""
+        self.mesh = check_data_mesh(mesh)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.sched = sched.to(self.device)
@@ -141,6 +181,7 @@ class Generator:
         self.last_sample_path = None
         self._packed = None
         self._packed_key = None
+        self._replicas = {}       # mesh devices -> (pack, tmap, coefs) each
         self._tmap = (self.timestep_map if self.timestep_map is not None
                       else torch.arange(self.num_steps, device=self.device))
         self._coefs = {"ddim": ddim_coefficients(self.sched).to(self.device),
@@ -157,6 +198,7 @@ class Generator:
         self.model.load_state_dict(state_dict)
         self._packed = None
         self._packed_key = None
+        self._replicas = {}
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -211,6 +253,7 @@ class Generator:
                 self.model, pose_dim, pose_window_len,
                 weight_dtype=self.fused_dtype)
             self._packed_key = key
+            self._replicas = {}
         n = noise.shape[0]
         dp_pad = self._packed.w_embx.shape[0]
 
@@ -238,11 +281,28 @@ class Generator:
                     stochastic=sample_alg == "ddpm", seed=seed, x_add=x_add)
 
     def _fused_sample(self, wavs, pose_dim, pose_window_len, noise, ip, im,
-                      ramp, sample_alg, seed):
-        out = fused_ddim_sample(**self.fused_args(
-            wavs, pose_dim, pose_window_len, noise, ip, im, ramp, sample_alg,
-            seed))
-        return out[:, :, :pose_dim]
+                      ramp, sample_alg, seed, mesh=None):
+        args = self.fused_args(wavs, pose_dim, pose_window_len, noise, ip, im,
+                               ramp, sample_alg, seed)
+        n = noise.shape[0]
+        shards = 1 if mesh is None else mesh.shape["data"]
+        if shards == 1 or n % shards:
+            return fused_ddim_sample(**args)[:, :, :pose_dim]
+        if mesh.devices not in self._replicas:
+            self._replicas[mesh.devices] = replicate(
+                (self._packed, self._tmap, self._coefs), mesh)
+        pieces = split_batch({k: args[k] for k in (
+            "x_T", "mem_rows", "blend_a", "blend_b", "x_add")}, mesh)
+        outs = []
+        for s, (dev, piece, (packed, tmap, coefs)) in enumerate(zip(
+                mesh.devices, pieces, self._replicas[mesh.devices])):
+            local = dict(args, **piece, packed=packed, tmap=tmap,
+                         coefs=coefs[sample_alg], clip_base=s * (n // shards))
+            if torch.is_tensor(seed):
+                local["seed"] = seed.to(dev)
+            # queued, not waited for: shards on distinct GPUs overlap
+            outs.append(fused_ddim_sample(**local))
+        return torch.cat([o.to(self.device) for o in outs])[:, :, :pose_dim]
 
     def _model_fn(self, memory, inpaint_pose=None, inpaint_mask=None):
         """``model_fn(x, t) -> eps`` over the hoisted memory (and, for the
@@ -300,13 +360,15 @@ class Generator:
         trans_factor: Optional[float] = None,
         pose_seed_len: Optional[int] = None,
         z_fn: Optional[Callable[[int], object]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> torch.Tensor:
         """One window batch -> (N, T, C) float32 poses on the device.
         Without ``noise`` the initial noise is drawn from ``generator``.
         ``sample_alg="ddpm"`` draws its per-step noise from ``generator``
         too: the fused path one seed for the kernel's own noise, the scan
         path every step's z, or ``z_fn(step)`` when given (scan path only;
-        tests inject the JAX package's draws)."""
+        tests inject the JAX package's draws).  ``mesh`` (the Generator's
+        by default) splits the fused path's batch over its devices."""
         if sample_alg not in ("ddim", "ddpm"):
             raise ValueError(f"unknown sample_alg {sample_alg!r}")
         if z_fn is not None and self.fused:
@@ -340,8 +402,10 @@ class Generator:
                 seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                      device=gdev, dtype=torch.int64
                                      ).to(self.device)
-            out = self._fused_sample(wavs, pose_dim, pose_window_len, noise,
-                                     ip, im, ramp, sample_alg, seed)
+            out = self._fused_sample(
+                wavs, pose_dim, pose_window_len, noise, ip, im, ramp,
+                sample_alg, seed,
+                self.mesh if mesh is None else check_data_mesh(mesh))
             self.last_sample_path = "fused"
             return out
         out = self._scan_sample(wavs, noise, ip, im, ramp, sample_alg,
@@ -365,10 +429,12 @@ class Generator:
         sample_alg: str = "ddim",
         batch_size: int = 64,
         noise_fn: Optional[Callable[[int, int], object]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> np.ndarray:
         """Long audio -> (N, T_seq, C) numpy poses by overlapped windows
         with seed-pose continuation.  ``noise_fn(batch_start, window)``,
-        when given, supplies each window's initial noise (N_b, T, C)."""
+        when given, supplies each window's initial noise (N_b, T, C).
+        ``mesh`` as for ``generate_sample``."""
         wav_seqs = self._wavs(wav_seqs).cpu().numpy()
         if wav_seqs.ndim != 2:
             raise ValueError("wav_seqs must be (N, T_wav)")
@@ -406,7 +472,7 @@ class Generator:
                     noise=None if noise_fn is None else noise_fn(b0, d),
                     inpaint_poses=ip, inpaint_masks=im,
                     sample_alg=sample_alg, trans_factor=trans_factor,
-                    pose_seed_len=pose_seed_len).cpu().numpy()
+                    pose_seed_len=pose_seed_len, mesh=mesh).cpu().numpy()
                 samples.append(sample)
                 prev_tail = sample[:, -pose_seed_len:]
                 pose_start += stride
@@ -436,6 +502,7 @@ class Generator:
         sample_alg: str = "ddim",
         max_in_flight: int = 4,
         noise_fn: Optional[Callable[[int, int], object]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> "GestureStream":
         """Streaming counterpart of :meth:`generate_sequence`: push audio
         chunks of any size, receive pose chunks as they complete.
@@ -448,13 +515,16 @@ class Generator:
         or the same generator state, provided the offline call's
         ``batch_size >= N``: the offline path draws noise per
         (batch chunk, window), the stream per window for the whole batch.
+        ``mesh`` (the Generator's by default) splits each window's batch
+        over its devices, as ``generate_sample`` does.
         """
         return GestureStream(self, wav_sr, pose_dim, pose_fps,
                              pose_window_len, pose_seed_len, rng=generator,
                              smooth_trans=smooth_trans,
                              trans_factor=trans_factor, init_poses=init_poses,
                              sample_alg=sample_alg,
-                             max_in_flight=max_in_flight, noise_fn=noise_fn)
+                             max_in_flight=max_in_flight, noise_fn=noise_fn,
+                             mesh=mesh)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -568,7 +638,8 @@ class GestureStream:
                  smooth_trans: bool = True,
                  trans_factor: Optional[float] = None, init_poses=None,
                  sample_alg: str = "ddim", max_in_flight: int = 4,
-                 noise_fn: Optional[Callable[[int, int], object]] = None):
+                 noise_fn: Optional[Callable[[int, int], object]] = None,
+                 mesh: Optional[Mesh] = None):
         if not pose_seed_len < pose_window_len:
             raise ValueError(
                 f"pose_seed_len ({pose_seed_len}) must be < pose_window_len "
@@ -587,6 +658,7 @@ class GestureStream:
         self.max_in_flight = max(1, max_in_flight)
         self._rng = rng
         self._noise_fn = noise_fn
+        self._mesh = check_data_mesh(mesh)
         self._init_tail = (None if init_poses is None
                            else generator._tensor(init_poses))
         self._buf = []                  # received audio chunks (np)
@@ -670,7 +742,7 @@ class GestureStream:
                 noise=None if self._noise_fn is None else self._noise_fn(0, d),
                 inpaint_poses=ip, inpaint_masks=im,
                 sample_alg=self.sample_alg, trans_factor=self.trans_factor,
-                pose_seed_len=self.seed_len)
+                pose_seed_len=self.seed_len, mesh=self._mesh)
             self._in_flight.append(sample)
             self._last_dispatched = sample
             self._next_div += 1

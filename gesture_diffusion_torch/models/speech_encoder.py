@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.audio import speech_frontend
+from ..parallel.mesh import active_group, all_reduce_sum
 
 BN_EPS = 1e-5
 
@@ -42,7 +43,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance (n/(n-1) times larger), flax towards the biased one.  So the
     statistics are computed here, in f32 whatever the input dtype, and the
     running averages moved by hand: new = 0.9 old + 0.1 batch (torch's
-    momentum 0.1 is flax's 0.9).  Eval mode is torch's own."""
+    momentum 0.1 is flax's 0.9).  Eval mode is torch's own.
+
+    Under a process group (``torch.distributed``, a group of one included)
+    the batch is the global one, as in the JAX package's batch-sharded
+    step: the mean and then the centred second moment are summed over the
+    ranks with two all-reduces that carry the gradient
+    (``parallel.mesh.all_reduce_sum``), so every rank
+    normalises and moves its running statistics by the same numbers.
+    ``torch.nn.SyncBatchNorm`` does not serve: it refuses CPU tensors and
+    moves ``running_var`` towards the unbiased variance."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=BN_EPS, momentum=0.1)
@@ -50,17 +60,35 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if active_group() is not None:
+            return self._global_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(
                 x.to(torch.promote_types(x.dtype, torch.float32)),
                 dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
-                                    self.momentum)
-            self.running_var.lerp_(var.to(self.running_var.dtype),
-                                   self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                             self.eps)
+                            self.eps)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+        self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Statistics of the global batch; every rank holds as many rows
+        (the data split makes it so), hence the count."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.numel() // xf.shape[1] * active_group()[1]
+        mean = all_reduce_sum(xf.sum(dim=(0, 2, 3))) / count
+        centred = xf - mean[None, :, None, None]
+        var = all_reduce_sum((centred * centred).sum(dim=(0, 2, 3))) / count
+        self._update_running(mean.detach(), var.detach())
+        y = centred * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = (y * self.weight.to(y.dtype)[None, :, None, None]
+             + self.bias.to(y.dtype)[None, :, None, None])
+        return y.to(x.dtype)
 
 
 class SELayer(nn.Module):

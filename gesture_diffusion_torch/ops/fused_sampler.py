@@ -36,8 +36,9 @@ Noise of the stochastic sampler, defined once for the kernel and the plain
 version (``fused_noise``): z for element (clip, row r, lane n) of step s
 is Box-Muller (cosine branch) of two words of Philox4x32-10 with
 key = (seed low word, seed high word) and counter
-((r // 2) * Dp_pad + n, s, clip, 0); words 0, 1 serve the even row of the
-pair and words 2, 3 the odd one.  u = top 23 bits / 2**23,
+((r // 2) * Dp_pad + n, s, clip_base + clip, 0); words 0, 1 serve the
+even row of the pair and words 2, 3 the odd one.  ``clip_base`` is 0
+unless the batch is a shard of a larger one.  u = top 23 bits / 2**23,
 z = sqrt(-2 log(max(u1, 1e-12))) cos(2 pi u2).  Pad lanes draw noise like
 any other lane; the caller slices them off.
 
@@ -69,6 +70,7 @@ block) attacks the weight stream itself.  ``bound_ms`` in
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import weakref
@@ -312,17 +314,20 @@ def _box_muller(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fused_noise(seed, step: int, n: int, t: int, dp: int,
-                device=None) -> torch.Tensor:
+                device=None, clip_base: int = 0) -> torch.Tensor:
     """(N, T, Dp_pad) float32 noise of the stochastic sampler at ``step``,
-    as the kernel draws it (module docstring).  ``seed`` is an int or a
-    one-element int64 tensor; only its low 64 bits count."""
+    as the kernel draws it (module docstring), for the clips
+    [clip_base, clip_base + N): a shard of a larger batch draws the
+    whole batch's z for its clips.  ``seed`` is an int or a one-element
+    int64 tensor; only its low 64 bits count."""
     seed = torch.as_tensor(seed, dtype=torch.int64).reshape(())
     device = seed.device if device is None else device
     seed = seed.to(device)
     pairs = (t + 1) // 2
     c0 = torch.arange(pairs * dp, dtype=torch.int64, device=device
                       ).view(1, pairs, dp)
-    clip = torch.arange(n, dtype=torch.int64, device=device).view(n, 1, 1)
+    clip = torch.arange(clip_base, clip_base + n, dtype=torch.int64,
+                        device=device).view(n, 1, 1)
     w = philox4x32_10(c0, step, clip, 0, seed & _M32, (seed >> 32) & _M32)
     z = torch.stack([_box_muller(w[0], w[1]), _box_muller(w[2], w[3])], dim=2)
     return z.reshape(n, 2 * pairs, dp)[:, :t]
@@ -383,7 +388,7 @@ def fused_ddim_sample_plain(packed: PackedDenoiser, x_T, mem_rows, tmap, coefs,
                             blend_a, blend_b, n_layers: int, heads: int,
                             num_steps: int, compute_dtype=torch.bfloat16,
                             stochastic: bool = False, seed=0, x_add=None,
-                            z=None):
+                            clip_base: int = 0, z=None):
     """The fused sampler's function in plain torch ops on the packed
     weights, with the kernel's arguments and compute-dtype policy.  The
     CPU path of ``fused_ddim_sample`` and the card's yardstick for the
@@ -430,8 +435,8 @@ def fused_ddim_sample_plain(packed: PackedDenoiser, x_T, mem_rows, tmap, coefs,
         eps = _mm(_ln(h), p.w_out, cd) + p.b_out
         c0, c1, c2, c3 = c[s, :4]
         if stochastic:
-            zs = z[s] if z is not None else fused_noise(seed, s, n, t, dp,
-                                                        x.device)
+            zs = z[s] if z is not None else fused_noise(
+                seed, s, n, t, dp, x.device, clip_base)
             if blend_a is None:
                 x = (float(c2 * c0 + c3) * x - float(c2 * c1) * eps
                      + float(c[s, 4]) * zs)
@@ -554,7 +559,7 @@ def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int):
 
 
 _LIB = None
-N_PTRS, N_DIMS = 35, 13
+N_PTRS, N_DIMS = 35, 14
 
 
 def _library():
@@ -586,13 +591,20 @@ def bind_library(lib):
 _MAX_CLUSTERS: dict = {}
 
 
+def _current(dev: torch.device):
+    """``dev`` as the current CUDA device for the block (nothing for the
+    CPU tensors of the wrapper's tests)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 def max_clusters(lib, c: int, smem: int, device) -> int:
     """Clusters of c blocks with ``smem`` bytes each that the card runs at
     once, asked of the built library once per (library, device, c, smem);
     raises on a CUDA error."""
     key = (id(lib), str(device), c, smem)
     if key not in _MAX_CLUSTERS:
-        m = lib.fused_ddim_max_clusters(c, smem)
+        with _current(torch.device(device)):
+            m = lib.fused_ddim_max_clusters(c, smem)
         if m < 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for "
                                f"clusters of {c}: CUDA error {-m}")
@@ -625,7 +637,8 @@ def kernel_weights(packed: PackedDenoiser) -> dict:
 
 def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
                      n_layers, heads, num_steps, compute_dtype,
-                     stochastic=False, seed=0, x_add=None, *, cluster=None):
+                     stochastic=False, seed=0, x_add=None, clip_base=0, *,
+                     cluster=None):
     """Launch the kernel.  ``cluster`` forces the blocks per clip (tests
     and ``chip_smoke.py``); by default ``cluster_plan`` picks it."""
     global launches, last_cluster
@@ -680,14 +693,16 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
     dims = (ctypes.c_int * N_DIMS)(n, t, mem.shape[1], d_model, dp,
                                    p.ff_w1.shape[2], n_layers, heads, num_steps,
                                    fc, int(half), int(bool(stochastic)),
-                                   cluster)
+                                   cluster, int(clip_base))
     # the launch is asynchronous: the temporaries above (mem, tok, coef5,
     # seed_t, the scratch) may be freed on return because the caching
     # allocator only reuses their blocks for work queued after the kernel
     # on this same stream
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.fused_ddim_launch(ptrs, N_PTRS, dims, N_DIMS,
-                               ctypes.c_void_p(stream))
+    # the launch goes to the tensors' device, whichever is current
+    with _current(dev):
+        rc = lib.fused_ddim_launch(ptrs, N_PTRS, dims, N_DIMS,
+                                   ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_ddim kernel launch failed (clusters of "
                            f"{cluster} blocks): CUDA error {rc}")
@@ -713,6 +728,7 @@ def fused_ddim_sample(
     stochastic: bool = False,
     seed=0,                     # int or one-element int64 tensor
     x_add: Optional[torch.Tensor] = None,   # (N, T, Dp_pad) f32
+    clip_base: int = 0,         # the first clip's index in the noise stream
 ) -> torch.Tensor:
     """(N, T, Dp_pad) float32 x_0.  CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise.
@@ -720,11 +736,16 @@ def fused_ddim_sample(
     ``stochastic`` runs ancestral DDPM with the noise of ``fused_noise``
     drawn from ``seed``; ``x_add`` is a loop-invariant term added to the
     state before the input projection on every step (the inpaint model
-    type's conditioning)."""
+    type's conditioning).  ``clip_base`` numbers the clips from
+    ``clip_base`` in the noise stream: a shard holding clips [c0, c0 + N)
+    of a batch passes c0 and draws that batch's noise for them."""
+    if clip_base < 0:
+        raise ValueError(f"clip_base must be >= 0, got {clip_base}")
     _check_args(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
                 n_layers, heads, num_steps, stochastic, x_add)
     args = (packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b, n_layers,
-            heads, num_steps, compute_dtype, stochastic, seed, x_add)
+            heads, num_steps, compute_dtype, stochastic, seed, x_add,
+            clip_base)
     if x_T.device.type == "cpu":
         return fused_ddim_sample_plain(*args)
     if x_T.device.type != "cuda":

@@ -7,7 +7,9 @@ best_metric_value, run_id), readable without loading the weights.  Both are
 written to a temporary file and moved into place with ``os.replace``, so a
 crash never leaves a torn file.  Errors name the file and tell a corrupt
 file (move it aside) from one that is intact but saved under another model
-or optimizer structure (fix the config, keep the file).
+or optimizer structure (fix the config, keep the file).  Under a process
+group rank 0 writes, and every rank waits for it at a barrier, so that
+all of them resume from the same whole file.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import os
 from typing import Any, Dict, Mapping, Tuple
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import active_group, is_main_process
 
 
 def checkpoint_path(log_dir: str, seed: int) -> str:
@@ -26,7 +31,15 @@ def checkpoint_path(log_dir: str, seed: int) -> str:
 def save_checkpoint(path: str, tree: Dict[str, Any],
                     metadata: Dict[str, Any]) -> None:
     """``tree``: name -> state dict (or any object ``torch.save`` takes
-    and ``torch.load(weights_only=True)`` reads back)."""
+    and ``torch.load(weights_only=True)`` reads back).  Every rank of a
+    process group calls it; rank 0 writes."""
+    if is_main_process():
+        _write(path, tree, metadata)
+    if active_group() is not None:
+        dist.barrier()
+
+
+def _write(path: str, tree: Dict[str, Any], metadata: Dict[str, Any]) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     torch.save(tree, tmp)

@@ -3,7 +3,7 @@
 Port of ``gesture_diffusion_tpu/training/metrics.py`` with the same keys:
 ``train/*`` every ``log_step_gap`` steps, ``val/*`` per epoch, each record
 stamped with ``_time`` and ``_step``; one file per run id, so a resumed
-run appends to its own.  (The JAX logger's optional wandb mirror is not
+run appends to its own.  Under a process group only rank 0 writes.  (The JAX logger's optional wandb mirror is not
 carried over.)
 """
 
@@ -17,6 +17,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..parallel.mesh import is_main_process
+
 
 def generate_run_id() -> str:
     return uuid.uuid4().hex[:8]
@@ -25,14 +27,20 @@ def generate_run_id() -> str:
 class MetricsLogger:
     def __init__(self, log_dir: str, run_id: Optional[str] = None,
                  config: Optional[dict] = None):
-        os.makedirs(log_dir, exist_ok=True)
         self.run_id = run_id or generate_run_id()
         self.path = os.path.join(log_dir, f"metrics_{self.run_id}.jsonl")
+        #: False on the ranks other than 0 of a process group
+        self.writes = is_main_process()
+        if not self.writes:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         if config is not None:
             with open(os.path.join(log_dir, f"run_{self.run_id}.config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
 
     def log(self, record: Dict[str, Any], step: Optional[int] = None) -> None:
+        if not self.writes:
+            return
         def scalarize(v):
             # float() only on scalars; vectors are written as lists
             if hasattr(v, "numel") and v.numel() != 1:

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..diffusion.gaussian import ModelFn, Schedule, training_losses
+from ..parallel.mesh import active_group, all_reduce_sum
 from .lr_schedule import build_lr_schedule
 
 
@@ -36,9 +37,21 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta).mean()
 
 
-def _speed(x: torch.Tensor) -> torch.Tensor:
-    """(T-1,) mean |x[t+1] - x[t]| over batch and channels."""
-    return torch.diff(x, dim=1).abs().mean(dim=(0, 2))
+def _speeds(x_start: torch.Tensor, pred: torch.Tensor):
+    """The (T-1,) mean |x[t+1] - x[t]| over batch and channels of the clean
+    poses and of the prediction.  Under a process group the mean is over
+    the global batch, as the JAX package's batch-sharded step takes it:
+    the per-frame sums are all-reduced with their gradient (each rank
+    holds as many rows), so the nonlinear terms built on the curves are
+    the global ones."""
+    group = active_group()
+    if group is None:
+        return tuple(torch.diff(x, dim=1).abs().mean(dim=(0, 2))
+                     for x in (x_start, pred))
+    d = torch.stack([torch.diff(x_start, dim=1).abs(),
+                     torch.diff(pred, dim=1).abs()])
+    count = d.shape[1] * d.shape[3] * group[1]
+    return (all_reduce_sum(d.sum(dim=(1, 3))) / count).unbind(0)
 
 
 def assemble_losses(
@@ -55,7 +68,8 @@ def assemble_losses(
 
     :param weights: (N,) importance weights of the denoise term (the
         loss-aware schedule sampler); the speed terms are batch statistics
-        and stay unweighted.
+        (of the global batch under a process group, ``_speeds``) and stay
+        unweighted.
     :param with_per_example: add the unweighted (N,) mse under
         ``"mse_per_example"`` for the sampler's history."""
     returns = training_losses(sched, model_fn, x_start, t, noise)
@@ -66,12 +80,15 @@ def assemble_losses(
         losses["mse_per_example"] = mse
 
     pred_x_start = returns["pred_x_start"]
-    for name, weight in (loss_params or {}).items():
+    loss_params = loss_params or {}
+    if {"speed_loss", "speed_l1_loss"} & set(loss_params):
+        speed, speed_pred = _speeds(x_start, pred_x_start)
+    for name, weight in loss_params.items():
         if name == "speed_loss":
-            term = wasserstein_distance_1d(_speed(x_start), _speed(pred_x_start))
+            term = wasserstein_distance_1d(speed, speed_pred)
             losses["speed"] = term
         elif name == "speed_l1_loss":
-            term = smooth_l1(_speed(pred_x_start), _speed(x_start))
+            term = smooth_l1(speed_pred, speed)
             losses["speed_l1"] = term
         elif name == "speed_constraint_loss":
             term = torch.diff(pred_x_start, dim=1).abs().mean()

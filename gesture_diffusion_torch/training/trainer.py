@@ -1,8 +1,7 @@
 """The training loop: train and validation steps as functions over the
 model and its optimizer, and the ``Trainer`` around them.
 
-Port of ``gesture_diffusion_tpu/training/trainer.py`` for one process on
-one device:
+Port of ``gesture_diffusion_tpu/training/trainer.py``:
 
   * a train step draws t and noise (from generators of the run's seed and
     the step, unless the caller injects them), runs the model in train mode
@@ -13,6 +12,19 @@ one device:
     init or resume, ``start_chkpt``, epochs, the validation loss, best
     params, early stopping, one checkpoint per epoch and the loss-aware
     ``schedule_sampler``.
+
+Data parallelism, one process per device (``parallel/mesh.py``): under a
+process group, a group of one included, the step runs the model through
+``DistributedDataParallel`` on this rank's rows of the global batch.  It
+keeps the JAX package's global-batch semantics: t and noise are drawn for
+the whole global batch on every rank and each takes its rows, BatchNorm
+and the speed losses see the global batch (``models/speech_encoder.py``,
+``training/train_state.py``), and the gradient is DDP's mean before the
+norm and the clipping; so N ranks compute what one process computes on
+the same global batch.  Validation, early stopping and the best state
+read all-reduced losses, so every rank decides the same; rank 0 writes
+the checkpoints and metrics.  Without a group the trainer is the
+single-process one.
 
 PyTorch runs eagerly, so there is no compiled multi-step call (the JAX
 trainer's ``steps_per_call``).  The step reads nothing back to the host
@@ -25,6 +37,7 @@ import contextlib
 import json
 import os
 import time
+import warnings
 from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -35,6 +48,7 @@ from torch.profiler import record_function
 from ..diffusion.gaussian import Schedule
 from ..diffusion.resample import create_named_schedule_sampler
 from ..models.denoiser import GestureDenoiser
+from ..parallel.mesh import active_group, collective_device, is_main_process
 from ..utils.device import resolve_device
 from ..utils.rng import RngStream
 from .checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
@@ -93,6 +107,42 @@ def _dropout_seeded(seed: int, device: torch.device, active: bool):
         yield
 
 
+def _rows(n: int):
+    """(global batch, this rank's rows of it) for a local batch of n."""
+    rank, world = active_group() or (0, 1)
+    return n * world, slice(rank * n, (rank + 1) * n)
+
+
+def _wrap_ddp(model: nn.Module) -> nn.Module:
+    """``model`` in ``DistributedDataParallel`` on its device.
+
+    ``find_unused_parameters`` stays False: every parameter of every
+    decoder and model type gets a gradient in each step
+    (``test_every_parameter_gets_a_gradient``), and the search would cost
+    a graph walk a step.  ``broadcast_buffers`` is False: the global
+    BatchNorm moves every rank's running statistics by the same numbers,
+    so there is nothing to broadcast."""
+    dev = next(model.parameters()).device
+    with warnings.catch_warnings():
+        # recent torch renames broadcast_buffers, older has no new name
+        warnings.simplefilter("ignore", FutureWarning)
+        return nn.parallel.DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None,
+            broadcast_buffers=False, find_unused_parameters=False)
+
+
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each scalar metric averaged over the ranks (one all-reduce): the
+    global batch's loss terms."""
+    import torch.distributed as dist
+
+    world = active_group()[1]
+    keys = [k for k, v in metrics.items() if v.ndim == 0]
+    stacked = torch.stack([metrics[k] for k in keys])
+    dist.all_reduce(stacked)
+    return {**metrics, **dict(zip(keys, (stacked / world).unbind(0)))}
+
+
 def make_train_step(
     model: GestureDenoiser,
     sched: Schedule,
@@ -112,43 +162,62 @@ def make_train_step(
     (clipped) gradients until the next step.  Its three phases are
     ``torch.profiler`` ranges: ``train_step/forward`` (draws, forward and
     losses), ``train_step/backward`` and ``train_step/optimizer`` (norm,
-    clipping and AdamW)."""
+    clipping and AdamW).
+
+    Under a process group ``batch`` is this rank's rows of the global
+    batch; t, noise and ``weights``, drawn or given, are the global
+    batch's (N x world rows), of which the step takes its rows; the
+    dropout masks come from a stream per (step, rank), rank 0's being the
+    single process's; the loss terms are averaged over the ranks, and
+    ``mse_per_example`` is this rank's."""
     rngs = RngStream(seed)
     params = [p for p in model.parameters() if p.requires_grad]
     dropout = any(isinstance(m, nn.Dropout) and m.p > 0
                   for m in model.modules())
+    group = active_group()
+    net = model if group is None else _wrap_ddp(model)
+    rank = 0 if group is None else group[0]
+    dropout_stream = "train/dropout" if rank == 0 else f"train/dropout/{rank}"
 
     def train_step(batch: Batch, step: int, t=None, noise=None, weights=None,
                    with_per_example: bool = False) -> Dict[str, torch.Tensor]:
         poses, wav = batch["pose"], batch["wav"]
         dev = poses.device
+        n_global, rows = _rows(poses.shape[0])
         with record_function("train_step/forward"):
             if t is None:
-                t = torch.randint(0, sched.num_timesteps, (poses.shape[0],),
+                t = torch.randint(0, sched.num_timesteps, (n_global,),
                                   generator=rngs.torch("train/t", step, dev),
                                   device=dev)
             if noise is None:
-                noise = torch.randn(poses.shape, dtype=poses.dtype, device=dev,
+                noise = torch.randn((n_global,) + poses.shape[1:],
+                                    dtype=poses.dtype, device=dev,
                                     generator=rngs.torch("train/noise", step, dev))
+            t, noise = t[rows], noise[rows]
+            if weights is not None:
+                weights = weights[rows]
             extra = inpaint_kwargs(model, poses)
             model.train()
             optimizer.zero_grad(set_to_none=True)
-            with _dropout_seeded(rngs.seed_of("train/dropout", step), dev, dropout):
+            with _dropout_seeded(rngs.seed_of(dropout_stream, step), dev, dropout):
                 losses = assemble_losses(
-                    sched, lambda x_t, tt: model(x_t, tt, wav, **extra), poses,
+                    sched, lambda x_t, tt: net(x_t, tt, wav, **extra), poses,
                     t, noise, loss_params, weights=weights,
                     with_per_example=with_per_example)
         with record_function("train_step/backward"):
+            # under DDP the gradients arrive averaged over the ranks
             losses["loss"].backward()
         with record_function("train_step/optimizer"):
             grads = [p.grad for p in params if p.grad is not None]
             grad_norm = global_norm(grads)
             clip_gradients(grads, grad_norm, grad_norm_clip_value, grad_clip_value)
             lr = lr_schedule(step)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = lr
             optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            metrics = _mean_over_ranks(metrics)
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -158,15 +227,17 @@ def make_train_step(
 def make_val_step(model: GestureDenoiser, sched: Schedule,
                   loss_params: Optional[Dict[str, float]] = None):
     """:return: ``val_step(batch, generator) -> losses``: eval mode, no
-    gradients, t and noise drawn from ``generator``."""
+    gradients, t and noise drawn from ``generator`` (for the global batch
+    under a process group, of which this rank takes its rows)."""
 
     @torch.no_grad()
     def val_step(batch: Batch, generator: torch.Generator):
         poses, wav = batch["pose"], batch["wav"]
-        t = torch.randint(0, sched.num_timesteps, (poses.shape[0],),
-                          generator=generator, device=poses.device)
-        noise = torch.randn(poses.shape, dtype=poses.dtype, device=poses.device,
-                            generator=generator)
+        n_global, rows = _rows(poses.shape[0])
+        t = torch.randint(0, sched.num_timesteps, (n_global,),
+                          generator=generator, device=poses.device)[rows]
+        noise = torch.randn((n_global,) + poses.shape[1:], dtype=poses.dtype,
+                            device=poses.device, generator=generator)[rows]
         extra = inpaint_kwargs(model, poses)
         model.eval()
         return assemble_losses(sched, lambda x_t, tt: model(x_t, tt, wav, **extra),
@@ -212,9 +283,12 @@ class Trainer:
         device) or ``"loss-second-moment"`` (t drawn on the host by the
         RMS of recent per-t losses, one device round trip per step).  Its
         history is not checkpointed.
-        :param device: the card unless ``"cpu"`` is asked for."""
+        :param device: the card unless ``"cpu"`` is asked for; under a
+        process group (``parallel.init_distributed``) this rank's device,
+        and ``batch_size`` is the global batch."""
         if goal not in ("minimize", "maximize"):
             raise ValueError(f"Unsupported goal: {goal}")
+        self.group = active_group()
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.sched = sched.to(self.device)
@@ -263,11 +337,11 @@ class Trainer:
             self.best_metric_value = meta.get("best_metric_value",
                                               self.best_metric_value)
             self.run_id = meta.get("run_id", self.run_id)
-            print(f"[Info] Resuming from {self.chkpt_path} at epoch "
-                  f"{self.epochs_run}")
+            self._print(f"[Info] Resuming from {self.chkpt_path} at epoch "
+                        f"{self.epochs_run}")
 
         self.logger = MetricsLogger(log_dir, run_id=self.run_id, config=config)
-        if config is not None:
+        if config is not None and is_main_process():
             with open(os.path.join(log_dir, "config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
         self.early_stop_counter = 0
@@ -277,6 +351,10 @@ class Trainer:
     @property
     def train_step_count(self) -> int:
         return self._step
+
+    def _print(self, text: str) -> None:
+        if is_main_process():
+            print(text)
 
     def save(self) -> None:
         save_checkpoint(
@@ -296,18 +374,19 @@ class Trainer:
 
     def _dispatch_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One train step at the current step count; with the loss-aware
-        sampler, t and its weights come from the host and the per-example
-        losses go back to it."""
+        sampler, t and its weights come from the host (drawn for the
+        global batch, the same on every rank) and the per-example losses go
+        back to it, gathered over the ranks."""
         if self.sampler is None:
             return self._train_step(batch, self._step)
-        t_np, w_np = self.sampler.sample_np(self._sampler_rng,
-                                            int(batch["pose"].shape[0]))
+        n_global, rows = _rows(int(batch["pose"].shape[0]))
+        t_np, w_np = self.sampler.sample_np(self._sampler_rng, n_global)
         metrics = self._train_step(
             batch, self._step, t=torch.from_numpy(t_np).to(self.device),
             weights=torch.from_numpy(w_np).to(self.device),
             with_per_example=True)
         self.sampler.update_with_local_losses(
-            t_np, metrics.pop("mse_per_example").cpu().numpy())
+            t_np[rows], metrics.pop("mse_per_example").cpu().numpy())
         return metrics
 
     def train_steps(self, batches: List[Mapping[str, np.ndarray]]
@@ -346,6 +425,11 @@ class Trainer:
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n_batches += 1
+        if self.group is not None and sums:
+            sums = {k: float(v) for k, v in _mean_over_ranks({
+                k: torch.tensor(v, dtype=torch.float64,
+                                device=collective_device())
+                for k, v in sums.items()}).items()}
         record = {f"val/{k}": v / max(1, n_batches) for k, v in sums.items()}
         record["val/epochs_run"] = self.epochs_run
         metric_value = record[self.metric.replace("_", "/", 1)]
@@ -365,7 +449,7 @@ class Trainer:
             self.early_stop_counter += 1
             if self.early_stop_counter >= early_stop_threshold:
                 self.early_stop = True
-                print("[Info] Early stop threshold reached. Stop training.")
+                self._print("[Info] Early stop threshold reached. Stop training.")
 
     def train(self, max_epochs: int, early_stop_threshold: int = 10**9) -> None:
         for _ in range(self.epochs_run, max_epochs):
@@ -375,7 +459,7 @@ class Trainer:
             self.epochs_run += 1
             self._update_best(metric_value, early_stop_threshold)
             self.save()
-            print(
+            self._print(
                 f"[Info] Epoch {self.epochs_run}/{max_epochs}"
                 f" | step {self._step}"
                 f" | {self.metric} {metric_value:.6f}"

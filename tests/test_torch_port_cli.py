@@ -219,7 +219,7 @@ def test_eval_time_and_gen_phases(cli_run):
 
 @pytest.mark.parametrize("path,value,match", [
     ("Train.dtype", "bfloat16", "Train.dtype"),
-    ("Train.world_size", 4, "world_size"),
+    ("Train.world_size", 0, "world_size"),
     ("Model.Encoder.type", "wav2vec2", "Unsupported encoder"),
     ("Model.Decoder.type", "transformer", "Unsupported decoder"),
 ])

@@ -187,6 +187,60 @@ def test_kernel_noise_is_the_plain_noise(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("base", [0, 2, 5])
+def test_clip_base_draws_the_batch_noise(card, base):
+    """A launch over clips [base, base + 2) with ``clip_base`` draws the z
+    of those clips of a 7-clip batch, bit for bit at every cluster size,
+    and its DDPM sample is its plain version's with the same clip_base."""
+    p = fs.pack_oneway_denoiser(card, D_POSE, 40)
+    x, mem, _, _ = _inputs(2, 40, 16, False, seed=8)
+    seed = (3 << 32) | 17
+    one = torch.tensor([[0.0, 0.0, 0.0, 0.0, 1.0]], device="cuda")
+    whole = fs._fused_ddim_cuda(
+        p, torch.zeros(7, 40, 128, device="cuda"), torch.zeros(7, 16, 256, device="cuda"),
+        torch.tensor([0], device="cuda"), one, None, None, N_LAYERS, 8, 1,
+        torch.bfloat16, True, seed, cluster=1)
+    for c in (1, 2, 4, 8):
+        z = fs._fused_ddim_cuda(p, x, mem, torch.tensor([0], device="cuda"), one,
+                                None, None, N_LAYERS, 8, 1, torch.bfloat16, True,
+                                seed, None, base, cluster=c)
+        assert torch.equal(z, whole[base:base + 2]), c
+    sched, tmap = make_diffusion("linear", 100, "ddim10")
+    args = (p, x, mem, tmap.cuda(), fs.ddpm_coefficients(sched).cuda(), None,
+            None, N_LAYERS, 8, sched.num_timesteps)
+    kw = dict(stochastic=True, seed=seed, clip_base=base)
+    k = fs.fused_ddim_sample(*args, **kw)
+    assert _rel(k, fs.fused_ddim_sample_plain(*args, **kw)) < BAR
+    if base:
+        assert not torch.equal(k, fs.fused_ddim_sample(*args, stochastic=True,
+                                                       seed=seed))
+
+
+@pytest.mark.cuda
+def test_generator_over_two_shards_on_one_card(card):
+    """A mesh whose two devices are the one card: two launches of 2 clips
+    give the unsharded DDPM batch of 4 bit for bit (both plan clusters of
+    8); a batch of 3 runs unsharded in one launch."""
+    from gesture_diffusion_torch.parallel import make_mesh
+
+    sched, tmap = make_diffusion("linear", 100, "ddim10")
+    sharded = Generator(card, sched, tmap, mesh=make_mesh(devices=["cuda:0"] * 2))
+    whole = Generator(card, sched, tmap)
+    wav = torch.randn(4, 16000, generator=torch.Generator().manual_seed(7)) * 0.3
+    outs = []
+    for gen in (sharded, whole):
+        before = fs.launches
+        outs.append(gen.generate_sample(
+            wav, D_POSE, T, sample_alg="ddpm",
+            generator=torch.Generator(device="cuda").manual_seed(8)))
+        outs.append(fs.launches - before)
+    assert outs[1] == 2 and outs[3] == 1 and torch.equal(outs[0], outs[2])
+    before = fs.launches
+    three = sharded.generate_sample(wav[:3], D_POSE, T)
+    assert fs.launches == before + 1 and three.shape == (3, T, D_POSE)
+
+
+@pytest.mark.cuda
 def test_inpaint_generator_runs_ddpm_fused_on_card(card):
     model = GestureDenoiser(DenoiserConfig(d_pose=D_POSE, n_layers=N_LAYERS,
                                            model_type="inpaint"))

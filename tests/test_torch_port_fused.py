@@ -459,7 +459,7 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
     assert ptrs[5] == a.data_ptr() and ptrs[6] == b.data_ptr()
     assert ptrs[7] is None and ptrs[8] is not None and ptrs[9] is not None
     # 3 clips fit in one wave of clusters of 8: 24 blocks
-    assert dims == [3, T, 16, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 0, 8]
+    assert dims == [3, T, 16, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 0, 8, 0]
     assert stub.blocks[-1] == 24 and fs.last_cluster == 8
     # the kernel-side transposed weights are made once per pack
     kt = fs.kernel_weights(p)
@@ -467,15 +467,16 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
     assert kt["self_wqkv"].shape == (N_LAYERS, 3 * DM, DM)
     assert fs.kernel_weights(p) is kt
 
-    # stochastic, x_add, a 92-row memory and a seed kept as a tensor
+    # stochastic, x_add, a 92-row memory, a seed kept as a tensor and the
+    # clips of a shard that starts at clip 96
     x_add = 0.1 * x
     mem92 = torch.from_numpy(_inputs(3, 51, None, n_mem=92)[1])
     out = fs._fused_ddim_cuda(p, x, mem92, tmap, torch.zeros(10, 5), a, b,
                               N_LAYERS, 8, 10, torch.bfloat16, True,
-                              torch.tensor([1234567890123]), x_add)
+                              torch.tensor([1234567890123]), x_add, 96)
     ptrs, dims = stub.calls[-1]
     assert ptrs[7] == x_add.data_ptr() and ptrs[10] == kt["w_embx"].data_ptr()
-    assert dims == [3, T, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 1, 8]
+    assert dims == [3, T, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 1, 8, 96]
     # the forced cluster size reaches the launch, n * C blocks of arguments
     for c in fs.CLUSTER_SIZES:
         fs._fused_ddim_cuda(p, x, mem92, tmap, torch.zeros(10, 5), a, b,

@@ -108,11 +108,33 @@ Phases (any failure raises and the script exits non-zero):
      ``generate_sequence`` over the mesh, the kernel at ``clip_base`` 0
      and 32 against its plain version; the CLI's ``Train.world_size: 2``
      refused on one card with ``make_mesh``'s error;
-  14. print the kernels' JSON line and, last, the device line.
+  14. tensor parallelism on the one card (``tp_paths``, ``[tp]``): beat-ours
+     at full width split over a model axis (``parallel/tp.py``) in 1 x 2
+     and 2 x 2 (data x model) gloo ranks sharing cuda:0, spawned as
+     subprocesses, one step of each layout against the one-process step
+     on the global batch of 64 (phase 6's bars), 40 kernels split, ms a
+     step a rank (overhead, not scaling); the 2 x 2 ranks' checkpoint
+     (whole tensors) in a plain Generator through the fused kernel
+     against the one-process step's weights;
+  15. the whole-model compute dtype (``dtype_paths``, ``[dtype-*]``): beat-ours
+     training at batch 64 in f32, with the bf16 encoder and with
+     ``Train.dtype`` bf16 (windows/s, peak MB); one bf16 step at batch 4 on
+     the card and on the CPU against the CPU's float64 step (the bars of
+     ``tests/test_torch_port_dtype.py``, the CPU in JAX's place); the
+     bf16-trained model through the fused kernel (held against its plain
+     version) and through the scan path; tedexp's scan step in bf16 beside
+     f32 at batches 1 and 32;
+  16. a JAX checkpoint (``jax_chkpt_paths``, ``[jax-chkpt]``): the committed
+     ``tests/fixtures/jax_chkpt`` checkpoint, written by the JAX package's
+     ``save_checkpoint``, through the CLI's prep, data, eval-time and gen
+     on the card with no ``.pt`` beside it (fused launches counted); the
+     card's scan sample on its weights against the JAX sample recorded
+     beside it (1e-4, TF32 off); the kernel at its shapes;
+  17. print the kernels' JSON line and, last, the device line.
 
-    python3 chip_smoke.py --only corpus tedexp decoders mocap zoo multi
+    python3 chip_smoke.py --only corpus tedexp decoders mocap zoo multi tp dtype jax-chkpt
 
-runs phases 8 to 13 alone (no kernel phases, no result line), to try
+runs phases 8 to 16 alone (no kernel phases, no result line), to try
 them.
 
 Needs CUDA; imports nothing of JAX.
@@ -252,7 +274,8 @@ def make_check(worst: dict, worst_c: dict):
     folds them into ``worst`` (variant -> [relative, absolute]) and
     ``worst_c`` (cluster size -> relative), and raises above KERNEL_BAR.
     Its launches are comparisons: callers read the main path's launch count
-    before calling it."""
+    before calling it.  A cluster size is forced where it divides the
+    heads (the flagship's 8 take every size)."""
     from gesture_diffusion_torch.ops import fused_sampler as fs
 
     def check(variant, label, args, scan=None, steps="ddim50"):
@@ -260,7 +283,7 @@ def make_check(worst: dict, worst_c: dict):
             k = fs.fused_ddim_sample(**args)
             planned = fs.last_cluster
             forced = {c: fs._fused_ddim_cuda(**args, cluster=c)
-                      for c in fs.CLUSTER_SIZES}
+                      for c in fs.CLUSTER_SIZES if args["heads"] % c == 0}
             torch.cuda.synchronize()
             p = fs.fused_ddim_sample_plain(**args)
         kk, pp = k[..., :D_POSE], p[..., :D_POSE]
@@ -1948,7 +1971,6 @@ def multi_paths(smi, dev, check) -> dict:
     """Phase 13: data-parallel training and sharded serving on one card.
     Returns the fused launches of its main paths by variant; raises on any
     failed check."""
-    import signal
     import tempfile
 
     import torch.distributed as dist
@@ -1959,8 +1981,7 @@ def multi_paths(smi, dev, check) -> dict:
     from gesture_diffusion_torch.models import build_all, speech_encoder
     from gesture_diffusion_torch.ops import fused_sampler as fs
     from gesture_diffusion_torch.parallel import init_distributed, make_mesh
-    from gesture_diffusion_torch.training import (Trainer, iter_batches,
-                                                  make_optimizer, make_train_step)
+    from gesture_diffusion_torch.training import Trainer, iter_batches, make_optimizer
     from gesture_diffusion_torch.utils import JsonConfig
 
     cfg = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
@@ -2073,49 +2094,15 @@ def multi_paths(smi, dev, check) -> dict:
                 "noise": noise, "mel": mel.cpu()}, os.path.join(work, "inputs.pt"))
     port = _free_port()
     script = _MULTI_RANK % {"repo": REPO, "steps": MULTI_STEPS}
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(port), work,
-                               str(dev)],
-                              cwd=REPO, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True,
-                              start_new_session=True) for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=MULTI_TIMEOUT))
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            os.killpg(p.pid, signal.SIGKILL)
-            p.communicate()
-        raise AssertionError(f"the two gloo ranks did not end in {MULTI_TIMEOUT} s")
-    spawn_s = time.perf_counter() - t0
-    for p, (_, err) in zip(procs, logs):
-        if p.returncode != 0:
-            raise AssertionError(f"a gloo rank failed (exit {p.returncode}):\n"
-                                 f"{err[-4000:]}")
+    spawn_s = _spawn(script, lambda r: [str(r), str(port), work, str(dev)], 2,
+                     MULTI_TIMEOUT, "the two gloo ranks")
     outs = [torch.load(os.path.join(work, f"out_{r}.pt"), weights_only=True)
             for r in range(2)]
 
     # the one-process step on the global batch, f32 and f64, the same mel
-    ref = {}
-    frontend = speech_encoder.speech_frontend
-    speech_encoder.speech_frontend = lambda w: mel
-    try:
-        for dtype in (torch.float32, torch.float64):
-            model = bundle().model
-            model.load_state_dict(state)
-            model.to(dtype)
-            step = make_train_step(model, b.schedule, *make_optimizer(model, cfg.Train))
-            m = step({"pose": batch["pose"].to(dev, dtype), "wav": batch["wav"].to(dev)},
-                     0, t=t.to(dev), noise=noise.to(dev, dtype))
-            ref[dtype] = ({k: float(v) for k, v in m.items()},
-                          {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
-                          {k: v.detach().cpu().float() for k, v in model.state_dict().items()
-                           if "running_" in k})
-            del model, step
-    finally:
-        speech_encoder.speech_frontend = frontend
+    ref = one_process_steps(bundle, state, cfg, batch, t, noise, mel, dev)
     (m32, g32, s32), (_, g64, _) = ref[torch.float32], ref[torch.float64]
+    s32 = {k: v for k, v in s32.items() if "running_" in k}
     o = outs[0]
     loss_d = abs(o["metrics"]["loss"] - m32["loss"]) / abs(m32["loss"])
     norm_d = abs(o["metrics"]["grad_norm"] - m32["grad_norm"]) / m32["grad_norm"]
@@ -2300,13 +2287,529 @@ def multi_paths(smi, dev, check) -> dict:
     return launches
 
 
+# -- phase 14: tensor parallelism on one card -----------------------------------
+TP_LAYOUTS = ((1, 2), (2, 2))     # (n_data, n_model) gloo ranks on one card
+TP_BATCH = 64
+TP_STEPS = 3                      # timed steps a rank after the compared one
+TP_TIMEOUT = 300                  # s, the ranks of one layout together
+
+# one rank of [tp]: beat-ours at full width sharded over the model axis,
+# one step of its data row's rows (f32, TF32 off, the parent's mel), the
+# gradients and the stepped weights gathered whole, then TP_STEPS timed
+_TP_RANK = r"""
+import sys, time
+rank, world, n_data, port, work = (int(sys.argv[1]), int(sys.argv[2]),
+                                   int(sys.argv[3]), sys.argv[4], sys.argv[5])
+dev = __import__("torch").device(sys.argv[6])
+sys.path.insert(0, %(repo)r)
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from gesture_diffusion_torch.models import build_all, speech_encoder
+from gesture_diffusion_torch.parallel import (active_group, apply_tensor_parallel,
+                                              full_state_dict, gather_full,
+                                              init_distributed, make_mesh)
+from gesture_diffusion_torch.training import make_optimizer, make_train_step
+from gesture_diffusion_torch.utils import JsonConfig
+
+init_distributed(f"localhost:{port}", world, rank, backend="gloo", device=dev)
+mesh = make_mesh(n_data, world // n_data, [dev] * world)
+row = active_group()[0]
+inp = torch.load(f"{work}/inputs.pt", weights_only=True)
+n = inp["pose"].shape[0] // n_data
+rows = slice(row * n, (row + 1) * n)
+mel = inp["mel"][rows].to(dev)
+speech_encoder.speech_frontend = lambda w: mel
+cfg = JsonConfig(inp["config"])
+b = build_all(cfg, inp["d_pose"], device=dev, encoder_dtype=None)
+b.model.load_state_dict(inp["state"])
+plan = apply_tensor_parallel(b.model, mesh)
+step = make_train_step(b.model, b.schedule, *make_optimizer(b.model, cfg.Train))
+batch = {"pose": inp["pose"][rows].to(dev), "wav": inp["wav"][rows].to(dev)}
+m = step(batch, 0, t=inp["t"].to(dev), noise=inp["noise"].to(dev))
+grads = gather_full(b.model, {k: p.grad for k, p in b.model.named_parameters()})
+state = full_state_dict(b.model)
+out = {"metrics": {k: float(v) for k, v in m.items()},
+       "grads": {k: v.detach().cpu().clone() for k, v in grads.items()},
+       "state": {k: v.detach().cpu().clone() for k, v in state.items()},
+       "kernels": sum(1 for k, v in plan.items()
+                      if v != "replicated" and k.endswith("weight"))}
+ms = []
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+for i in range(%(steps)d):
+    sync()
+    t0 = time.perf_counter()
+    step(batch, 1 + i)
+    sync()
+    ms.append((time.perf_counter() - t0) * 1e3)
+out["ms"] = ms
+if rank == 0:
+    torch.save(out, f"{work}/out_{world}.pt")
+torch.distributed.destroy_process_group()
+print("DONE", rank, flush=True)
+"""
+
+
+def _spawn(script: str, argv_of, n: int, timeout: float, what: str) -> float:
+    """Run ``n`` copies of ``script`` (``argv_of(r)`` their arguments) to
+    their end; returns the seconds they took, raises on a failure."""
+    import signal
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", script, *argv_of(r)],
+                              cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+        raise AssertionError(f"{what} did not end in {timeout} s")
+    for p, (_, err) in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what} failed (exit {p.returncode}):\n"
+                                 f"{err[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def one_process_steps(bundle, state, cfg, batch, t, noise, mel, dev) -> dict:
+    """The one-process step on the global batch in float32 and float64 on
+    one mel: dtype -> (metrics, gradients, state after the step)."""
+    from gesture_diffusion_torch.models import speech_encoder
+    from gesture_diffusion_torch.training import make_optimizer, make_train_step
+
+    ref = {}
+    frontend = speech_encoder.speech_frontend
+    speech_encoder.speech_frontend = lambda w: mel
+    try:
+        for dtype in (torch.float32, torch.float64):
+            b = bundle()
+            model = b.model
+            model.load_state_dict(state)
+            model.to(dtype)
+            step = make_train_step(model, b.schedule, *make_optimizer(model, cfg.Train))
+            m = step({"pose": batch["pose"].to(dev, dtype), "wav": batch["wav"].to(dev)},
+                     0, t=t.to(dev), noise=noise.to(dev, dtype))
+            ref[dtype] = ({k: float(v) for k, v in m.items()},
+                          {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                          {k: v.detach().cpu().float() for k, v in model.state_dict().items()})
+            del b, model, step
+    finally:
+        speech_encoder.speech_frontend = frontend
+    return ref
+
+
+def tp_paths(smi, dev, check) -> dict:
+    """Phase 14: tensor parallelism (``parallel/tp.py``) on one card.
+    Returns the fused launches of its serving path by variant; raises on
+    any failed check."""
+    import tempfile
+
+    from gesture_diffusion_torch.diffusion import make_diffusion
+    from gesture_diffusion_torch.generation import Generator
+    from gesture_diffusion_torch.models import build_all, speech_encoder
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.utils import JsonConfig
+
+    cfg = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_")
+
+    def bundle():
+        return build_all(cfg, D_POSE, device=dev, encoder_dtype=None,
+                         generator=torch.Generator().manual_seed(0))
+
+    state = {k: v.detach().cpu() for k, v in bundle().model.state_dict().items()}
+    ds = synthetic_training_set(TP_BATCH, 110)
+    batch = {k: torch.from_numpy(v) for k, v in ds.data.items()}
+    g = torch.Generator().manual_seed(111)
+    t = torch.randint(0, 1000, (TP_BATCH,), generator=g)
+    noise = torch.randn(batch["pose"].shape, generator=g)
+    mel = speech_encoder.speech_frontend(batch["wav"].to(dev)).float()
+    torch.save({"config": cfg.to_dict(), "d_pose": D_POSE, "state": state,
+                "pose": batch["pose"], "wav": batch["wav"], "t": t, "noise": noise,
+                "mel": mel.cpu()}, os.path.join(tmp.name, "inputs.pt"))
+    ref = one_process_steps(bundle, state, cfg, batch, t, noise, mel, dev)
+    (m32, g32, s32), (_, g64, _) = ref[torch.float32], ref[torch.float64]
+    top = max(float(v.abs().max()) for v in g32.values())
+
+    def trunk_err(grads):
+        return max(float((grads[k].double() - g64[k].double()).abs().max()
+                         / g64[k].abs().max()) for k in g64 if k.startswith(TRUNK))
+
+    single_err = trunk_err(g32)
+    script = _TP_RANK % {"repo": REPO, "steps": TP_STEPS}
+    outs = {}
+    for n_data, n_model in TP_LAYOUTS:
+        world = n_data * n_model
+        port = _free_port()
+        secs = _spawn(script, lambda r: [str(r), str(world), str(n_data), str(port),
+                                         tmp.name, str(dev)],
+                      world, TP_TIMEOUT, f"the {n_data}x{n_model} tensor-parallel ranks")
+        o = torch.load(os.path.join(tmp.name, f"out_{world}.pt"), weights_only=True)
+        outs[world] = o
+        loss_d = abs(o["metrics"]["loss"] - m32["loss"]) / abs(m32["loss"])
+        norm_d = abs(o["metrics"]["grad_norm"] - m32["grad_norm"]) / m32["grad_norm"]
+        bn_d = max(float((o["state"][k] - v).abs().max() / v.abs().max())
+                   for k, v in s32.items() if "running_" in k)
+        outside = max((float((o["grads"][k] - v).abs().max())
+                       / max(float(v.abs().max()), 1e-2 * top), k)
+                      for k, v in g32.items() if not k.startswith(TRUNK))
+        tp_err = trunk_err(o["grads"])
+        log(f"[tp] beat-ours f32 (TF32 off), global batch {TP_BATCH}, "
+            f"{n_data}x{n_model} gloo ranks (data x model) all on {dev} "
+            f"(subprocesses, {secs:.1f} s with start-up), {o['kernels']} kernels "
+            f"split over the model axis: one step against the one-process step "
+            f"on the same batch, t, noise and mel: loss rel {loss_d:.2e}, "
+            f"grad_norm rel {norm_d:.2e}, BN max|d|/max|ref| {bn_d:.2e} (bar "
+            f"{TRAIN_LOSS_BAR:.0e}, norm {TRAIN_NORM_BAR:.0e}); worst gradient "
+            f"outside the trunk {outside[0]:.2e} of max|g| ({outside[1]}; bar "
+            f"{TRAIN_GRAD_BAR:.0e}); the trunk's f32 against f64: the ranks "
+            f"{tp_err:.2e}, one process {single_err:.2e} (bar "
+            f"{TRAIN_TRUNK_RATIO:g}x); rank 0's step {float(np.median(o['ms'])):.1f} "
+            f"ms median of {TP_STEPS} synchronised (overhead of {world} ranks "
+            f"sharing one card, not scaling) [{smi}]")
+        if (loss_d > TRAIN_LOSS_BAR or bn_d > TRAIN_LOSS_BAR or norm_d > TRAIN_NORM_BAR
+                or outside[0] > TRAIN_GRAD_BAR or tp_err > TRAIN_TRUNK_RATIO * single_err
+                or o["kernels"] != 10 * cfg.Model.Decoder.n_layers):
+            raise AssertionError(f"the {n_data}x{n_model} tensor-parallel step is "
+                                 "off the one-process step")
+
+    # the 2x2 run's checkpoint (whole tensors) through the fused kernel,
+    # against the one-process step's weights
+    s50, t50 = make_diffusion("linear", 1000, "ddim50")
+    gen = Generator(bundle().model, s50, t50, device=dev)
+    wav = seeded_audio(112, 8, WINDOW / FPS)
+    noise50 = torch.randn(8, WINDOW, D_POSE, generator=torch.Generator(device=dev)
+                          .manual_seed(113), device=dev)
+    samples, launches = [], 0
+    for weights in (outs[4]["state"], ref[torch.float32][2]):
+        gen.update_variables({k: v.to(dev) for k, v in weights.items()})
+        fs.launches = 0
+        samples.append(gen.generate_sample(wav, D_POSE, WINDOW, noise=noise50))
+        torch.cuda.synchronize()
+        launches += fs.launches
+    r = rel(samples[0], samples[1])
+    log(f"[tp] the 2x2 ranks' checkpoint (full_state_dict: whole tensors under "
+        f"the reference's names) in a plain Generator, ddim50 batch 8 through "
+        f"the fused kernel: max|d|/max|ref| {r:.3e} against the one-process "
+        f"step's weights (bar {KERNEL_BAR:.0e}); {launches} launches")
+    if r > KERNEL_BAR or launches != 2:
+        raise AssertionError("the tensor-parallel checkpoint does not serve as "
+                             "the one-process one")
+    tmp.cleanup()
+    return {"ddim": launches}
+
+
+# -- phase 15: the whole-model compute dtype (Train.dtype) -------------------------
+DTYPE_RATIO, DTYPE_FLOOR = 2.0, 2.0 ** -8   # tests/test_torch_port_dtype.py's
+DTYPE_DRAWS = 2
+DTYPE_NORM_BAND = (0.8, 1.25)
+TED_DTYPE_BATCHES = (1, 32)
+
+
+def _grad_groups(names):
+    heads = tuple(f"{TRUNK}{kind}_{tag}." for kind in ("conv", "bn", "fc")
+                  for tag in ("low", "mid", "high"))
+    trunk = [k for k in names if k.startswith(TRUNK)]
+    return {"trunk body": [k for k in trunk if not k.startswith(heads)],
+            "trunk heads": [k for k in trunk if k.startswith(heads)],
+            "rest": [k for k in names if not k.startswith(TRUNK)]}
+
+
+def _l2(grads, ref, names) -> float:
+    num = sum(float(((grads[k].double() - ref[k].double()) ** 2).sum()) for k in names)
+    return (num / sum(float((ref[k].double() ** 2).sum()) for k in names)) ** 0.5
+
+
+def _norm_ratio(grads, ref, names) -> float:
+    return (sum(float((grads[k].double() ** 2).sum()) for k in names)
+            / sum(float((ref[k].double() ** 2).sum()) for k in names)) ** 0.5
+
+
+def dtype_paths(smi, dev, check) -> dict:
+    """Phase 15: ``Train.dtype: "bfloat16"`` on the card.  Returns the fused
+    launches of its serving path by variant; raises on any failed check."""
+    import tempfile
+
+    from gesture_diffusion_torch.diffusion import make_diffusion
+    from gesture_diffusion_torch.generation import Generator
+    from gesture_diffusion_torch.models import build_all
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.training import (Trainer, iter_batches,
+                                                  make_optimizer, make_train_step)
+    from gesture_diffusion_torch.utils import JsonConfig
+
+    cfg = JsonConfig(os.path.join(REPO, "configs", "beat-ours.json"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dtype_")
+
+    def bundle(device=dev, **kw):
+        return build_all(cfg, D_POSE, device=device,
+                         generator=torch.Generator().manual_seed(0), **kw)
+
+    # -- [dtype-train]: windows/s of the three settings, one call ------------
+    train_ds = synthetic_training_set(TRAIN_BATCH * TRAIN_BATCHES, 120)
+    val_ds = synthetic_training_set(TRAIN_BATCH, 121)
+    block = list(iter_batches(train_ds, TRAIN_BATCH, shuffle=False))
+    trained = None
+    for i, (label, kw) in enumerate((("f32", {}),
+                                     ("bf16 encoder", dict(encoder_dtype="bfloat16")),
+                                     ("Train.dtype bf16", dict(dtype="bfloat16")))):
+        b = bundle(**kw)
+        trainer = Trainer(b.model, b.schedule, *make_optimizer(b.model, cfg.Train),
+                          train_ds, val_ds, TRAIN_BATCH,
+                          os.path.join(tmp.name, f"run{i}"), seed=0, device=dev)
+        trainer.train_steps(block)          # first calls: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        metrics = trainer.train_steps(block)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(block)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        losses = [float(m["loss"]) for m in metrics]
+        log(f"[dtype-train] beat-ours {label}, batch {TRAIN_BATCH}: "
+            f"{TRAIN_BATCH * 1e3 / ms:.1f} windows/s ({ms:.2f} ms a step over "
+            f"{len(block)} steps queued, one synchronise, after a first block), "
+            f"peak {peak:.0f} MB allocated; losses "
+            + " ".join(f"{x:.4f}" for x in losses) + f" (TF32 off) [{smi}]")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{label} training gave a non-finite loss")
+        if kw.get("dtype"):
+            trained = b
+        del trainer
+
+    # -- [dtype-vs-cpu]: one bf16 step at batch 4, card and CPU, against the
+    # CPU's float64 step ---------------------------------------------------------
+    weights = {k: v.detach().cpu() for k, v in bundle().model.state_dict().items()}
+    ds4 = synthetic_training_set(4 * DTYPE_DRAWS, 122)
+    sched = trained.schedule
+    found = {"card": [], "cpu": []}
+    for i in range(DTYPE_DRAWS):
+        batch = {k: torch.from_numpy(v[4 * i:4 * i + 4]) for k, v in ds4.data.items()}
+        g = torch.Generator().manual_seed(123 + i)
+        t = torch.randint(0, 1000, (4,), generator=g)
+        noise = torch.randn(batch["pose"].shape, generator=g)
+        runs = {}
+        with shared_mel(batch["wav"]):
+            for name, d, dtype, kw in (
+                    ("card", dev, torch.float32, dict(dtype="bfloat16")),
+                    ("cpu", torch.device("cpu"), torch.float32, dict(dtype="bfloat16")),
+                    ("f64", torch.device("cpu"), torch.float64, {})):
+                model = bundle(torch.device("cpu"), **kw).model
+                model.load_state_dict(weights)
+                model.to(d, dtype)
+                step = make_train_step(model, sched.to(d), *make_optimizer(model, cfg.Train))
+                m = step({"wav": batch["wav"].to(d), "pose": batch["pose"].to(d, dtype)},
+                         0, t=t.to(d), noise=noise.to(d, dtype))
+                runs[name] = ({k: float(v) for k, v in m.items()},
+                              {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+        ref_m, ref_g = runs["f64"]
+        groups = _grad_groups(list(ref_g))
+        for side in ("card", "cpu"):
+            m, grads = runs[side]
+            found[side].append(dict(
+                **{k: abs(m[k] - v) / abs(v) for k, v in ref_m.items() if k != "grad_norm"},
+                **{f"grad {g_}": _l2(grads, ref_g, sel) for g_, sel in groups.items()},
+                **{f"norm {g_}": _norm_ratio(grads, ref_g, sel)
+                   for g_, sel in groups.items()}))
+    mean = {side: {k: float(np.mean([f[k] for f in rows])) for k in rows[0]}
+            for side, rows in found.items()}
+    failures = []
+    for k, v in mean["card"].items():
+        if k.startswith("norm"):
+            if k != "norm trunk body" and not all(
+                    DTYPE_NORM_BAND[0] <= f[k] <= DTYPE_NORM_BAND[1] for f in found["card"]):
+                failures.append(k)
+            continue
+        bar = DTYPE_RATIO * mean["cpu"][k]
+        if not k.startswith("grad"):
+            bar = max(bar, DTYPE_FLOOR)
+        if v > bar:
+            failures.append(k)
+    log(f"[dtype-vs-cpu] beat-ours Train.dtype bf16, batch 4, TF32 off, one mel, "
+        f"mean of {DTYPE_DRAWS} draws of t and noise, against the CPU's float64 "
+        f"step (loss terms rel, gradient groups |d|/|ref|, norms |g|/|ref|): "
+        + ", ".join(f"{k} card {v:.3e} / CPU {mean['cpu'][k]:.3e}"
+                    for k, v in mean["card"].items())
+        + f"; bar {DTYPE_RATIO:g}x the CPU's (losses floored at 2^-8), norms "
+        f"outside the trunk body in {DTYPE_NORM_BAND} [{smi}]")
+    if failures:
+        raise AssertionError(f"the card's bf16 step is off the CPU's: {failures}")
+
+    # -- [dtype-serve]: the bf16-trained model through the kernel and the scan
+    s50, t50 = make_diffusion("linear", 1000, "ddim50")
+    wav = seeded_audio(124, 8, WINDOW / FPS)
+    noise50 = torch.randn(8, WINDOW, D_POSE, generator=torch.Generator(device=dev)
+                          .manual_seed(125), device=dev)
+    fused = Generator(trained.model, s50, t50, device=dev)
+    scan = Generator(trained.model, s50, t50, use_fused=False, device=dev)
+    fs.launches = 0
+    a = fused.generate_sample(wav, D_POSE, WINDOW, noise=noise50)
+    torch.cuda.synchronize()
+    launches = fs.launches
+    b_ = scan.generate_sample(wav, D_POSE, WINDOW, noise=noise50)
+    log(f"[dtype-serve] the Train.dtype bf16 model after {2 * TRAIN_BATCHES} "
+        f"steps, ddim50 batch 8: fused kernel ({launches} launch, f32 weights "
+        f"packed as for any model) and the scan path in bf16, max|d|/max|ref| "
+        f"{rel(b_, a):.3e} between them; finite {bool(torch.isfinite(a).all())}, "
+        f"{bool(torch.isfinite(b_).all())}")
+    with torch.no_grad():
+        args = fused.fused_args(torch.from_numpy(wav).to(dev), D_POSE, WINDOW, noise50)
+    check("ddim", "Train.dtype bf16-trained, batch 8", args)
+    if launches != 1 or not (torch.isfinite(a).all() and torch.isfinite(b_).all()):
+        raise AssertionError("the bf16-trained model does not serve")
+
+    # -- [dtype-tedexp]: the scan step in bf16 beside f32 ---------------------
+    ted = JsonConfig(os.path.join(REPO, "configs", "tedexp-ours.json"))
+    ted_pose = 126
+    ted_window, ted_fps = 34, 15
+    row = []
+    for label, kw in (("f32", {}), ("bf16", dict(dtype="bfloat16"))):
+        tb = build_all(ted, ted_pose, device=dev,
+                       generator=torch.Generator().manual_seed(0), **kw)
+        gen = Generator(tb.model, s50, t50, use_fused=False, device=dev)
+        for n in TED_DTYPE_BATCHES:
+            w = seeded_audio(126, n, ted_window / ted_fps)
+            z = torch.randn(n, ted_window, ted_pose, device=dev)
+            gen.generate_sample(w, ted_pose, ted_window, noise=z)   # first call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gen.generate_sample(w, ted_pose, ted_window, noise=z)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 50
+            row.append(f"{label} batch {n} {ms:.2f}")
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"tedexp {label} sample is not finite")
+        del tb, gen
+    log(f"[dtype-tedexp] tedexp-ours at full width, the scan sampler, ms a "
+        f"step (ddim50 generate_sample over 50, after a first call): "
+        + "; ".join(row) + f" [{smi}]")
+    tmp.cleanup()
+    return {"ddim": launches}
+
+
+# -- phase 16: a JAX checkpoint served by the port ---------------------------------
+JAX_CHKPT_BAR = 1e-4     # the card's scan sample against JAX's, TF32 off
+
+
+def jax_chkpt_paths(smi, dev, check) -> dict:
+    """Phase 16: the committed JAX checkpoint (``tests/fixtures/jax_chkpt``,
+    written by the JAX package's ``save_checkpoint``) through the port's
+    eval-time and gen phases on the card and against the JAX sample
+    recorded beside it.  Returns the fused launches by variant; raises on
+    any failed check."""
+    import contextlib
+    import io
+    import lzma
+    import pickle
+    import shutil
+    import tempfile
+
+    from gesture_diffusion_torch import cli
+    from gesture_diffusion_torch.generation import Generator
+    from gesture_diffusion_torch.interop import flax_msgpack, jax_checkpoint_state_dict
+    from gesture_diffusion_torch.models import build_all
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.utils import JsonConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fixture = os.path.join(REPO, "tests", "fixtures", "jax_chkpt")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_jax_chkpt_")
+    root = tmp.name
+    with open(os.path.join(fixture, "config.json")) as f:
+        raw = json.load(f)
+    for key in ("spt_dir_path", "dst_dir_path", "hierarchy_path"):
+        raw["Data"][key] = os.path.join(root, raw["Data"][key])
+    raw["Meta"]["log_dir"] = os.path.join(root, raw["Meta"]["log_dir"])
+    run = os.path.join(raw["Meta"]["log_dir"], raw["Meta"]["name"])
+    chkpts = os.path.join(run, "chkpts")
+    os.makedirs(chkpts)
+    msgpack_path = os.path.join(chkpts, "chkpt_seed0.msgpack")
+    with lzma.open(os.path.join(fixture, "chkpt_seed0.msgpack.xz")) as src, \
+            open(msgpack_path, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    shutil.copy(os.path.join(fixture, "chkpt_seed0.msgpack.meta.json"), chkpts)
+    with open(raw["Data"]["hierarchy_path"], "w") as f:
+        f.write(cli.hierarchy_template(
+            os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh"),
+            raw["Data"]["joints"], raw["Data"]["hierarchy_extra_joints"]))
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    launches, times, printed = {}, {}, {}
+    for phase in ("prep", "data", "eval-time", "gen"):
+        out = io.StringIO()
+        fs.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--phase", phase, "--config", cfg_path])
+        torch.cuda.synchronize()
+        times[phase], launches[phase] = time.perf_counter() - t0, fs.launches
+        printed[phase] = out.getvalue()
+    samples = os.path.join(run, "results", "samples")
+    outs = [pickle.load(open(os.path.join(samples, f), "rb"))["out"]
+            for f in sorted(os.listdir(samples))]
+    log(f"[jax-chkpt] the JAX package's checkpoint (chkpt_seed0.msgpack, "
+        f"{os.path.getsize(msgpack_path)} bytes, no .pt beside it) through the "
+        f"port's CLI on the card: "
+        + ", ".join(f"{p} {s:.2f} s" for p, s in times.items())
+        + f"; fused launches eval-time {launches['eval-time']}, gen "
+        f"{launches['gen']}; {len(outs)} generated sequences "
+        f"{[o.shape for o in outs]} [{smi}]")
+    if ("Load the JAX package's chkpt" not in printed["gen"]
+            or "path=fused" not in printed["eval-time"]
+            or not launches["eval-time"] or not launches["gen"]
+            or len(outs) != 2 or not all(np.isfinite(o).all() for o in outs)):
+        raise AssertionError("the JAX checkpoint did not serve through the CLI")
+
+    # the recorded JAX sample, and the kernel at its shapes
+    config = JsonConfig(cfg_path)
+    bundle = build_all(config, 12, device=dev)
+    variables = jax_checkpoint_state_dict(flax_msgpack.load(msgpack_path),
+                                          bundle.model.cfg)
+    rec = np.load(os.path.join(fixture, "sample.npz"))
+    wav = torch.from_numpy(rec["wav"]).to(dev)
+    noise = torch.from_numpy(rec["noise"]).to(dev)
+    scan = Generator(bundle.model, bundle.eval_schedule, bundle.eval_timestep_map,
+                     use_fused=False, device=dev)
+    scan.update_variables(variables)
+    ours = scan.generate_sample(wav, 12, noise.shape[1], noise=noise)
+    r = rel(ours.cpu(), torch.from_numpy(rec["sample"]))
+    log(f"[jax-chkpt] the card's scan sample (ddim50, batch 2, TF32 off) on the "
+        f"checkpoint's weights against the JAX Generator's recorded sample: "
+        f"max|d|/max|ref| {r:.3e} (bar {JAX_CHKPT_BAR:.0e}) [{smi}]")
+    fused = Generator(bundle.model, bundle.eval_schedule, bundle.eval_timestep_map,
+                      device=dev)
+    fused.update_variables(variables)
+    with torch.no_grad():
+        args = fused.fused_args(wav, 12, noise.shape[1], noise)
+    check("ddim", "the JAX checkpoint, batch 2", args)
+    if r > JAX_CHKPT_BAR:
+        raise AssertionError("the port serves the JAX checkpoint off JAX's sample")
+    tmp.cleanup()
+    return {"ddim": launches["eval-time"] + launches["gen"]}
+
+
+LATER_PHASES = {"multi": multi_paths, "tp": tp_paths, "dtype": dtype_paths,
+                "jax-chkpt": jax_chkpt_paths}
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", nargs="+",
                         choices=("corpus", "tedexp", "decoders", "mocap", "zoo",
-                                 "multi"),
+                                 "multi", "tp", "dtype", "jax-chkpt"),
                         help="run only these phases (no kernel phases; "
                         "corpus builds the kernel for its gen) and print no "
                         "result line: for trying a phase")
@@ -2336,8 +2839,8 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             if name == "corpus":
                 corpus_paths(smi, make_check({}, {}))
-            elif name == "multi":
-                multi_paths(smi, dev, make_check({}, {}))
+            elif name in LATER_PHASES:
+                LATER_PHASES[name](smi, dev, make_check({}, {}))
             else:
                 {"tedexp": tedexp_paths, "decoders": decoder_paths,
                  "mocap": mocap_paths, "zoo": zoo_paths}[name](smi, dev)
@@ -2682,11 +3185,13 @@ def main(argv=None) -> int:
     zoo_paths(smi, dev)
     log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 13: data parallelism and the sharded Generator -----------------
-    t0 = time.perf_counter()
-    for variant, count in multi_paths(smi, dev, check).items():
-        launches[variant] += count
-    log(f"[multi] phase took {time.perf_counter() - t0:.1f} s")
+    # -- phases 13 to 16: data and tensor parallelism, Train.dtype, a JAX
+    # checkpoint; each main path's launches counted from 0 in its phase ----
+    for name, paths in LATER_PHASES.items():
+        t0 = time.perf_counter()
+        for variant, count in paths(smi, dev, check).items():
+            launches[variant] += count
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
 
     what = {
         "ddim": ("fused_ddim_sample", f"{TPU_KERNEL}:705",

@@ -16,15 +16,17 @@ under ``Data.dst_dir_path``, ``{log_dir}/{name}/chkpts``,
 sklearn) or writes ``Data.synthetic`` samples, as the JAX CLI does.
 
 Differences by design:
-  * checkpoints are torch files (``chkpt_seed{seed}.pt``), so a JAX run's
-    msgpack checkpoint does not load here, nor the other way round;
+  * checkpoints are torch files (``chkpt_seed{seed}.pt``); where a run has
+    none, eval, eval-time and gen serve the JAX CLI's
+    ``chkpt_seed{seed}.msgpack`` (``interop/flax_msgpack.py``), and
+    ``Model.start_chkpt`` may name one; the JAX package reads no ``.pt``;
   * bpd, sampling and sequence noise come from ``torch.Generator``s seeded
     from ``Meta.seed`` (``utils/rng.py``), not from ``jax.random``;
   * settings the port cannot honour raise (``refuse_unported``) in the
     phases that build a model: train, eval, eval-time and gen;
   * the FGD embedding net (``Eval.fgd``) is a torch file beside the
-    configured path, with its suffix replaced by ``.pt``; a JAX
-    ``.msgpack`` net there raises rather than being trained over.
+    configured path, with its suffix replaced by ``.pt``; without one, a
+    JAX ``.msgpack`` net at the path is loaded.
 
 Data parallelism (``Train.world_size``): ``train`` with N > 1 spawns N
 ranks (``torch.multiprocessing``, "spawn"), rank r on ``cuda:r`` over
@@ -58,6 +60,7 @@ from gesture_diffusion_torch.generation.eval_utils import (
     beat_consistency_score, beat_recall_score)
 from gesture_diffusion_torch.generation.fgd import (EmbeddingSpaceEvaluator,
                                                     load_or_train_motion_ae)
+from gesture_diffusion_torch.interop import flax_msgpack, jax_checkpoint_state_dict
 from gesture_diffusion_torch.models import build_all
 from gesture_diffusion_torch.models.factory import SUPPORTED_DECODERS
 from gesture_diffusion_torch.parallel import (active_group, init_distributed,
@@ -73,10 +76,6 @@ def refuse_unported(config) -> None:
     """Raise on a setting the port cannot honour, rather than ignore it,
     before a phase writes anything."""
     train = config.get("Train") or {}
-    if train.get("dtype") is not None:
-        raise ValueError(
-            f"Train.dtype={train.get('dtype')!r} (the whole model in that "
-            "dtype) is not ported; the port has Train.encoder_dtype only")
     world = train.get("world_size", "auto")
     if world != "auto" and not (str(world).isdigit() and int(world) >= 1):
         raise ValueError(
@@ -292,6 +291,7 @@ def _train(config, dev: torch.device) -> None:
     train_ds, val_ds, _ = load_datasets(config)
     d_pose = train_ds.get_dims()["d_pose"]
     bundle = build_all(config, d_pose, device=dev,
+                       dtype=config.Train.get("dtype"),
                        encoder_dtype=config.Train.get("encoder_dtype"))
     optimizer, lr_schedule = make_optimizer(bundle.model, config.Train)
     train_arrays = train_ds.as_arrays()
@@ -329,6 +329,26 @@ def _is_bn_stat(name: str) -> bool:
     return name.endswith(("running_mean", "running_var"))
 
 
+def read_jax_checkpoint(path: str, model):
+    """(state dict to serve, metadata) of the JAX CLI's checkpoint at
+    ``path``: its ``best_params`` with the last state's BatchNorm
+    statistics, checked against ``model``'s names and shapes."""
+    tree = flax_msgpack.load(path)
+    variables = jax_checkpoint_state_dict(tree, model.cfg)
+    try:
+        check = model.load_state_dict(variables, strict=False)
+    except RuntimeError as e:
+        raise ValueError(f"{path}: checkpoint does not match the current "
+                         f"model ({str(e).splitlines()[0]}); fix the config") from e
+    if check.missing_keys:
+        raise ValueError(f"{path}: checkpoint lacks {check.missing_keys[:5]}")
+    meta = {}
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+    return variables, meta
+
+
 def load_eval_objs(config, device=None):
     """(checkpoint metadata, test dataset, ``Generator`` on the run's best
     weights with the last state's BatchNorm statistics, the pairing of the
@@ -339,16 +359,21 @@ def load_eval_objs(config, device=None):
     d_pose = test_ds.get_dims()["d_pose"]
     bundle = build_all(config, d_pose, device=dev)
     chkpt = checkpoint_path(_log_dir(config), config.Meta.seed)
-    if not os.path.exists(chkpt):
+    jax_chkpt = os.path.splitext(chkpt)[0] + ".msgpack"
+    if os.path.exists(chkpt):
+        print(f"[Info] Load chkpt from {chkpt}")
+        like = bundle.model.state_dict()
+        tree, meta = load_checkpoint(chkpt, {"model": like, "best_params": like},
+                                     map_location=dev)
+        variables = {**tree["best_params"], **{
+            k: v for k, v in tree["model"].items() if _is_bn_stat(k)}}
+    elif os.path.exists(jax_chkpt):
+        print(f"[Info] Load the JAX package's chkpt from {jax_chkpt}")
+        variables, meta = read_jax_checkpoint(jax_chkpt, bundle.model)
+    else:
         raise FileNotFoundError(
-            f"{chkpt}: no checkpoint; run --phase train first (the JAX "
-            "package's msgpack checkpoints do not load into the port)")
-    print(f"[Info] Load chkpt from {chkpt}")
-    like = bundle.model.state_dict()
-    tree, meta = load_checkpoint(chkpt, {"model": like, "best_params": like},
-                                 map_location=dev)
-    variables = {**tree["best_params"], **{
-        k: v for k, v in tree["model"].items() if _is_bn_stat(k)}}
+            f"{chkpt}: no checkpoint (nor the JAX package's {jax_chkpt}); "
+            "run --phase train first")
     # a process that sees more than one GPU samples over all of them: one
     # kernel instance per GPU; a batch that does not divide (eval-time's
     # batch of 1) runs on the first

@@ -8,8 +8,10 @@ t by the RMS of each timestep's recent losses.  The trainer draws t with
 pairs and applies the same update on each, so the histories, the weights
 and the next draw stay equal across processes.  ``allgather`` (one
 process-local array -> the list of every process's array, in rank order)
-is injectable; the default is ``torch.distributed``'s over the active
-group, and the identity without one.
+is injectable; the default is ``torch.distributed``'s over the data
+axis (``parallel.mesh.data_group``: under tensor parallelism a model
+group's ranks hold the same rows, so each example enters once), and the
+identity without a group.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import active_group, collective_device
+from ..parallel.mesh import active_group, collective_device, data_group
 
 
 def _default_allgather(x: np.ndarray):
@@ -34,7 +36,7 @@ def _default_allgather(x: np.ndarray):
     x = np.asarray(x)
     length = torch.tensor([len(x)], dtype=torch.int64, device=dev)
     lengths = [torch.empty_like(length) for _ in range(world)]
-    dist.all_gather(lengths, length)
+    dist.all_gather(lengths, length, group=data_group())
     lengths = [int(v) for v in lengths]
     longest = max(lengths)
     if longest == 0:
@@ -43,7 +45,7 @@ def _default_allgather(x: np.ndarray):
     padded[:len(x)] = x
     local = torch.from_numpy(padded).to(dev)
     parts = [torch.empty_like(local) for _ in range(world)]
-    dist.all_gather(parts, local)
+    dist.all_gather(parts, local, group=data_group())
     return [p[:n].cpu().numpy() for p, n in zip(parts, lengths)]
 
 

@@ -14,8 +14,8 @@ time-major, as the flax encoder does.  Module names follow flax's
 (``Conv_i`` -> ``convs.{i}``, ``LayerNorm_i`` -> ``norms.{i}``,
 ``Dense_i`` -> ``fcs.{i}``), so ``interop.motion_ae_state_dict_from_jax``
 carries a flax net's variables over by name.  Nets are saved with
-``torch.save`` (``.pt``); a JAX ``.msgpack`` net does not load here and is
-never retrained over.
+``torch.save`` (``.pt``); a JAX ``.msgpack`` net loads too
+(``load_jax_motion_ae``) and is never retrained over.
 """
 
 from __future__ import annotations
@@ -166,6 +166,19 @@ def load_motion_ae(path: str, device=None) -> MotionAE:
     return model.to(resolve_device(device)).eval()
 
 
+def load_jax_motion_ae(path: str, device=None) -> MotionAE:
+    """The JAX package's net (``save_motion_ae``'s flax msgpack:
+    ``{"meta", "variables"}``) as the port's ``MotionAE``."""
+    from ..interop import flax_msgpack, motion_ae_state_dict_from_jax
+
+    raw = flax_msgpack.load(path)
+    meta = raw["meta"]
+    model = MotionAE(int(meta["length"]), int(meta["pose_dim"]),
+                     int(meta["latent_dim"]))
+    model.load_state_dict(motion_ae_state_dict_from_jax(raw["variables"]))
+    return model.to(resolve_device(device)).eval()
+
+
 def motion_ae_path(path: str) -> str:
     """Where the port keeps the net configured at ``path``: beside it,
     with the suffix replaced by ``.pt``."""
@@ -175,20 +188,17 @@ def motion_ae_path(path: str) -> str:
 def load_or_train_motion_ae(path: "str | None", train_poses: np.ndarray,
                             latent_dim: int = 32, steps: int = 2000,
                             device=None) -> MotionAE:
-    """The net saved at ``motion_ae_path(path)`` if it is there; else one
-    trained on ``train_poses`` (seed 0) and saved there, so consecutive
-    evaluations score with the same net.  A net at ``path`` that is not
-    the port's (the JAX package's ``.msgpack``) raises: it is not
-    retrained over."""
+    """The net saved at ``motion_ae_path(path)`` if it is there; else the
+    JAX package's net at ``path`` (flax msgpack) if it is there; else one
+    trained on ``train_poses`` (seed 0) and saved at
+    ``motion_ae_path(path)``, so consecutive evaluations score with the
+    same net."""
     if path:
         pt = motion_ae_path(path)
         if os.path.exists(pt):
             return load_motion_ae(pt, device)
         if os.path.exists(path):
-            raise ValueError(
-                f"{path} is a JAX package's FGD net (flax msgpack), which "
-                f"does not load into the port; move it aside, and the port "
-                f"trains its own and saves it at {pt}")
+            return load_jax_motion_ae(path, device)
     model = train_motion_ae(train_poses, latent_dim=latent_dim, steps=steps,
                             device=device)
     if path:

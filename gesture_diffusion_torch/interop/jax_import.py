@@ -9,7 +9,11 @@ invert the importers of the model zoo's other stacks:
 ``glide_unet_state_dict_from_jax`` (``import_glide_unet_state_dict``; the
 GLIDE UNet and, given their ``params["unet"]``, its three wrappers),
 ``primer_state_dict_from_jax`` (``import_primer_stack``) and
-``se_bottleneck_state_dict_from_jax`` (``_se_bottleneck``).  Input: the
+``se_bottleneck_state_dict_from_jax`` (``_se_bottleneck``).
+``jax_checkpoint_state_dict`` takes a JAX CLI checkpoint as
+``flax_msgpack.load`` reads it (``best_params`` with the state's
+BatchNorm statistics) and ``jax_params_state_dict`` a params tree alone
+(a fine-tuning start).  Input: the
 JAX ``{"params", "batch_stats"}`` tree as numpy arrays (anything
 ``np.asarray`` accepts).  Output: tensors under the reference checkpoint's
 names, which are the port modules' own names.
@@ -277,6 +281,32 @@ def state_dict_from_jax(variables: Mapping, cfg) -> "OrderedDict[str, torch.Tens
         for i in (0, 2, 4):
             _linear(sd, f"proj.{i}", params["inpaint_proj"][f"layers_{i}"])
     return sd
+
+
+def jax_checkpoint_state_dict(tree: Mapping, cfg) -> "OrderedDict[str, torch.Tensor]":
+    """A JAX CLI checkpoint (``{"state": TrainState, "best_params"}``, as
+    ``interop.flax_msgpack.load`` reads it) -> the port's state dict to
+    serve: ``best_params`` with the last state's BatchNorm statistics, the
+    pairing of the JAX CLI's eval."""
+    return state_dict_from_jax({"params": tree["best_params"],
+                                "batch_stats": tree["state"]["batch_stats"]}, cfg)
+
+
+class _NoStats(dict):
+    """The batch statistics of a tree that has none: every one reads 0."""
+
+    def __getitem__(self, key):
+        return 0.0 if key in ("mean", "var") else self
+
+
+def jax_params_state_dict(params: Mapping, cfg) -> "OrderedDict[str, torch.Tensor]":
+    """A flax ``params`` tree -> the port's parameters under their names;
+    the BatchNorm statistics, which ``params`` does not hold, are left
+    out (a fine-tuning start keeps its own, as the JAX trainer's
+    ``load_start_params`` does)."""
+    sd = state_dict_from_jax({"params": params, "batch_stats": _NoStats()}, cfg)
+    return OrderedDict((k, v) for k, v in sd.items() if not k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked")))
 
 
 def motion_ae_state_dict_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":

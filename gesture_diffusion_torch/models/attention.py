@@ -8,6 +8,14 @@ sits where the JAX modules have it (after the positional encoding, on the
 attention probabilities, on the FF hidden layer) and is the identity in
 ``eval()``.  Module and parameter names follow the reference checkpoint
 (``query.0.linear``, ``query.1.conv``, ``feed_forward.layer1``, ...).
+``dtype`` is flax's compute dtype (``models/compute_dtype.py``): the
+projections run in it, the scores in float32, and the probabilities times
+the values accumulate in float32 before the cast to it, as the JAX module
+computes them.  Under tensor parallelism (``parallel/tp.py``) the
+projections are swapped for column- and row-parallel ones, a rank holds
+``heads / n_model`` heads (``PrepareForMultiHeadAttention.heads``), and
+the depthwise conv, whose taps every head shares, stays whole on every
+rank: its gradient is summed over the model group (``model_group``).
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .compute_dtype import Linear
 
 
 def squared_relu(x: torch.Tensor) -> torch.Tensor:
@@ -91,10 +101,11 @@ def depthwise_conv3(x: torch.Tensor, w: torch.Tensor,
 
 
 class PrepareForMultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, heads: int, d_k: int, bias: bool = True):
+    def __init__(self, d_model: int, heads: int, d_k: int, bias: bool = True,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
         self.heads, self.d_k = heads, d_k
-        self.linear = nn.Linear(d_model, heads * d_k, bias=bias)
+        self.linear = Linear(d_model, heads * d_k, bias=bias, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.linear(x)
@@ -108,10 +119,19 @@ class SpatialDepthWiseConv(nn.Module):
     def __init__(self, d_k: int):
         super().__init__()
         self.conv = nn.Conv1d(d_k, d_k, 3, padding=1, groups=d_k)
+        # tensor parallelism over heads: the group whose ranks hold the
+        # other heads, over which the taps' gradient is summed
+        self.model_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.conv.weight[:, 0, :].t().to(x.dtype)      # (3, d_k)
-        return depthwise_conv3(x, w, self.conv.bias.to(x.dtype))
+        weight, bias = self.conv.weight, self.conv.bias
+        if self.model_group is not None:
+            from ..parallel.tp import copy_to_model
+
+            weight = copy_to_model(weight, self.model_group)
+            bias = copy_to_model(bias, self.model_group)
+        w = weight[:, 0, :].t().to(x.dtype)      # (3, d_k)
+        return depthwise_conv3(x, w, bias.to(x.dtype))
 
 
 class MultiHeadAttention(nn.Module):
@@ -119,19 +139,22 @@ class MultiHeadAttention(nn.Module):
     in fp32, masked entries at finfo(float32).min, dropout on the
     probabilities."""
 
-    def __init__(self, heads: int, d_model: int, dropout: float = 0.0):
+    def __init__(self, heads: int, d_model: int, dropout: float = 0.0,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
         assert d_model % heads == 0
         self.heads = heads
         self.d_k = d_model // heads
+        self.dtype = dtype
 
         def proj():
             return nn.Sequential(
-                PrepareForMultiHeadAttention(d_model, heads, self.d_k),
+                PrepareForMultiHeadAttention(d_model, heads, self.d_k,
+                                             dtype=dtype),
                 SpatialDepthWiseConv(self.d_k))
 
         self.query, self.key, self.value = proj(), proj(), proj()
-        self.output = nn.Linear(d_model, d_model)
+        self.output = Linear(d_model, d_model, compute_dtype=dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, query, key, value, mask=None) -> torch.Tensor:
@@ -141,17 +164,23 @@ class MultiHeadAttention(nn.Module):
         if mask is not None:
             scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
         attn = self.dropout(torch.softmax(scores, dim=2))
-        out = torch.einsum("nijh,njhd->nihd", attn.to(v.dtype), v)
+        if self.dtype is None:
+            out = torch.einsum("nijh,njhd->nihd", attn.to(v.dtype), v)
+        else:
+            # flax: operands in dtype, accumulated in float32, cast back
+            out = torch.einsum("nijh,njhd->nihd", attn.to(self.dtype).float(),
+                               v.float()).to(self.dtype)
         return self.output(out.reshape(*out.shape[:-2], -1))
 
 
 class FeedForward(nn.Module):
     """d -> 4d -> d with squared ReLU, dropout on the hidden layer."""
 
-    def __init__(self, d_model: int, expansion: int = 4, dropout: float = 0.0):
+    def __init__(self, d_model: int, expansion: int = 4, dropout: float = 0.0,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
-        self.layer1 = nn.Linear(d_model, expansion * d_model)
-        self.layer2 = nn.Linear(expansion * d_model, d_model)
+        self.layer1 = Linear(d_model, expansion * d_model, compute_dtype=dtype)
+        self.layer2 = Linear(expansion * d_model, d_model, compute_dtype=dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@ Dropout sits on each sublayer's output before the residual add and after
 the positional encoding (the identity in ``eval()``).  LayerNorm eps is
 1e-6 (the JAX package's flax default, and the fused kernel's ``LN_EPS``),
 not torch's 1e-5.  Module names are the reference checkpoint's.
+``dtype`` is the compute dtype of every projection and LayerNorm
+(``models/compute_dtype.py``), None for the parameters' own.
 """
 
 from __future__ import annotations
@@ -22,19 +24,21 @@ import torch
 import torch.nn as nn
 
 from .attention import FeedForward, MultiHeadAttention, PositionalEncoding
+from .compute_dtype import LayerNorm, Linear
 
 LN_EPS = 1e-6
 
 
 class OnewayCrossAttentionLayer(nn.Module):
-    def __init__(self, d_model: int, heads: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, heads: int, dropout: float = 0.0,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
-        self.norm_self_attn = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.self_attn = MultiHeadAttention(heads, d_model, dropout)
-        self.norm_cross_attn = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.cross_attn = MultiHeadAttention(heads, d_model, dropout)
-        self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.feed_forward = FeedForward(d_model, dropout=dropout)
+        self.norm_self_attn = LayerNorm(d_model, LN_EPS, dtype)
+        self.self_attn = MultiHeadAttention(heads, d_model, dropout, dtype)
+        self.norm_cross_attn = LayerNorm(d_model, LN_EPS, dtype)
+        self.cross_attn = MultiHeadAttention(heads, d_model, dropout, dtype)
+        self.norm_ff = LayerNorm(d_model, LN_EPS, dtype)
+        self.feed_forward = FeedForward(d_model, dropout=dropout, dtype=dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -47,16 +51,18 @@ class OnewayCrossAttentionLayer(nn.Module):
 
 class OnewayCrossAttention(nn.Module):
     def __init__(self, d_x: int, d_memory: int, d_model: int, heads: int,
-                 n_layers: int, d_out: int, dropout: float = 0.0):
+                 n_layers: int, d_out: int, dropout: float = 0.0,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
-        self.emb_x = nn.Linear(d_x, d_model)
-        self.emb_mem = nn.Linear(d_memory, d_model)
+        self.emb_x = Linear(d_x, d_model, compute_dtype=dtype)
+        self.emb_mem = Linear(d_memory, d_model, compute_dtype=dtype)
         self.pe = PositionalEncoding(d_model, dropout)
         self.layers = nn.ModuleList(
-            OnewayCrossAttentionLayer(d_model, heads, dropout)
+            OnewayCrossAttentionLayer(d_model, heads, dropout, dtype)
             for _ in range(n_layers))
-        self.out_layers = nn.Sequential(nn.LayerNorm(d_model, eps=LN_EPS),
-                                        nn.Linear(d_model, d_out))
+        self.out_layers = nn.Sequential(
+            LayerNorm(d_model, LN_EPS, dtype),
+            Linear(d_model, d_out, compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         x = self.pe(self.emb_x(x))
@@ -68,20 +74,21 @@ class OnewayCrossAttention(nn.Module):
 
 class CrossAttentionLayer(nn.Module):
     def __init__(self, d_model: int, heads: int, dropout: float = 0.0,
-                 ff_memory: bool = True):
+                 ff_memory: bool = True, dtype: "torch.dtype | None" = None):
         super().__init__()
-        self.norm_self_attn = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.self_attn = MultiHeadAttention(heads, d_model, dropout)
-        self.norm_self_attn_mem = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.self_attn_mem = MultiHeadAttention(heads, d_model, dropout)
-        self.norm_cross_attn = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.cross_attn = MultiHeadAttention(heads, d_model, dropout)
-        self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.feed_forward = FeedForward(d_model, dropout=dropout)
+        self.norm_self_attn = LayerNorm(d_model, LN_EPS, dtype)
+        self.self_attn = MultiHeadAttention(heads, d_model, dropout, dtype)
+        self.norm_self_attn_mem = LayerNorm(d_model, LN_EPS, dtype)
+        self.self_attn_mem = MultiHeadAttention(heads, d_model, dropout, dtype)
+        self.norm_cross_attn = LayerNorm(d_model, LN_EPS, dtype)
+        self.cross_attn = MultiHeadAttention(heads, d_model, dropout, dtype)
+        self.norm_ff = LayerNorm(d_model, LN_EPS, dtype)
+        self.feed_forward = FeedForward(d_model, dropout=dropout, dtype=dtype)
         self.ff_memory = ff_memory
         if ff_memory:
-            self.norm_ff_mem = nn.LayerNorm(d_model, eps=LN_EPS)
-            self.feed_forward_mem = FeedForward(d_model, dropout=dropout)
+            self.norm_ff_mem = LayerNorm(d_model, LN_EPS, dtype)
+            self.feed_forward_mem = FeedForward(d_model, dropout=dropout,
+                                                dtype=dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor
@@ -104,17 +111,19 @@ class CrossAttentionLayer(nn.Module):
 
 class CrossAttention(nn.Module):
     def __init__(self, d_x: int, d_memory: int, d_model: int, heads: int,
-                 n_layers: int, d_out: int, dropout: float = 0.0):
+                 n_layers: int, d_out: int, dropout: float = 0.0,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
-        self.emb_x = nn.Linear(d_x, d_model)
-        self.emb_mem = nn.Linear(d_memory, d_model)
+        self.emb_x = Linear(d_x, d_model, compute_dtype=dtype)
+        self.emb_mem = Linear(d_memory, d_model, compute_dtype=dtype)
         self.pe = PositionalEncoding(d_model, dropout)
         self.layers = nn.ModuleList(
             CrossAttentionLayer(d_model, heads, dropout,
-                                ff_memory=i < n_layers - 1)
+                                ff_memory=i < n_layers - 1, dtype=dtype)
             for i in range(n_layers))
-        self.out_layers = nn.Sequential(nn.LayerNorm(d_model, eps=LN_EPS),
-                                        nn.Linear(d_model, d_out))
+        self.out_layers = nn.Sequential(
+            LayerNorm(d_model, LN_EPS, dtype),
+            Linear(d_model, d_out, compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         x, memory = self.emb_x(x), self.emb_mem(memory)

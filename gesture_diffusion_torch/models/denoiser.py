@@ -24,7 +24,11 @@ names.  Train mode (``model.train()``) turns on dropout (step encoder,
 inpaint MLP, speech streams, decoder) and the batch statistics of the
 encoder's BatchNorms.  ``encoder_dtype="bfloat16"`` runs the SE-ResNet
 trunk in bf16 and everything after it in f32: the blend layer and the
-decoder take the speech memory promoted to f32.
+decoder take the speech memory promoted to f32.  ``dtype="bfloat16"``
+(``Train.dtype``) runs the whole model in bf16 as flax does: every
+projection, LayerNorm and head computes in bf16 on float32 parameters
+(``models/compute_dtype.py``), the step embedding is cast to bf16, and
+the trunk takes ``encoder_dtype or dtype``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .compute_dtype import Linear, as_torch_dtype
 from .decoders import CrossAttention, OnewayCrossAttention
 from .gcn_decoder import CrossAttentionGCN
 from .speech_encoder import HA2GSpeechEncoder
@@ -68,15 +73,18 @@ def timestep_embedding(t: torch.Tensor, dim: int,
 
 
 class DiffusionStepEncoder(nn.Module):
-    def __init__(self, d_model: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.d_model = d_model
-        self.proj = nn.Sequential(nn.Linear(d_model, d_model), nn.SiLU(),
-                                  nn.Linear(d_model, d_model))
+        self.d_model, self.dtype = d_model, dtype
+        self.proj = nn.Sequential(Linear(d_model, d_model, compute_dtype=dtype),
+                                  nn.SiLU(),
+                                  Linear(d_model, d_model, compute_dtype=dtype))
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        emb = timestep_embedding(t, self.d_model).to(self.proj[0].weight.dtype)
+        emb = timestep_embedding(t, self.d_model).to(
+            self.dtype or self.proj[0].weight.dtype)
         return self.dropout(self.proj(emb))
 
 
@@ -90,6 +98,7 @@ class DenoiserConfig:
     model_type: str = "s2g_v2"            # default | s2g_v2 | inpaint
     decoder_type: str = "oneway_cross_attention"   # one of DECODER_TYPES
     pose_seed_len: int = 10               # inpaint only
+    dtype: Optional[str] = None           # "bfloat16": the whole model
     encoder_dtype: Optional[str] = None   # "bfloat16": the conv trunk only
     # cross_attention_gcn extras
     graph_layout: str = "beat"
@@ -108,15 +117,15 @@ class GestureDenoiser(nn.Module):
         if cfg.model_type not in MODEL_TYPES:
             raise ValueError(f"Unsupported model_type {cfg.model_type}")
         self.cfg = cfg
+        dt = as_torch_dtype(cfg.dtype)
         self.speech_encoder = HA2GSpeechEncoder(
-            cfg.d_model, cfg.dropout,
-            getattr(torch, cfg.encoder_dtype) if cfg.encoder_dtype else None)
+            cfg.d_model, cfg.dropout, as_torch_dtype(cfg.encoder_dtype) or dt)
         self.diffusion_step_encoder = DiffusionStepEncoder(cfg.d_model,
-                                                           cfg.dropout)
+                                                           cfg.dropout, dt)
         common = dict(d_x=cfg.d_pose, d_memory=cfg.d_model,
                       d_model=cfg.d_model, heads=cfg.heads,
                       n_layers=cfg.n_layers, d_out=cfg.d_pose,
-                      dropout=cfg.dropout)
+                      dropout=cfg.dropout, dtype=dt)
         if cfg.decoder_type == "oneway_cross_attention":
             self.pose_decoder = OnewayCrossAttention(**common)
         elif cfg.decoder_type == "cross_attention":
@@ -131,13 +140,15 @@ class GestureDenoiser(nn.Module):
                 attention_resolutions=tuple(cfg.attention_resolutions),
                 window_len=cfg.window_len, **common)
         if cfg.model_type == "s2g_v2":
-            self.blend_layer = nn.Linear(3 * cfg.d_model, cfg.d_model)
+            self.blend_layer = Linear(3 * cfg.d_model, cfg.d_model,
+                                      compute_dtype=dt)
         if cfg.model_type == "inpaint":
             # the reference checkpoint's name for the conditioning MLP
             self.proj = nn.Sequential(
-                nn.Linear(cfg.d_pose + 1, cfg.d_model), nn.SiLU(),
-                nn.Linear(cfg.d_model, cfg.d_model), nn.SiLU(),
-                nn.Linear(cfg.d_model, cfg.d_pose), nn.Dropout(cfg.dropout))
+                Linear(cfg.d_pose + 1, cfg.d_model, compute_dtype=dt), nn.SiLU(),
+                Linear(cfg.d_model, cfg.d_model, compute_dtype=dt), nn.SiLU(),
+                Linear(cfg.d_model, cfg.d_pose, compute_dtype=dt),
+                nn.Dropout(cfg.dropout))
             for lin in (self.proj[0], self.proj[2], self.proj[4]):
                 nn.init.zeros_(lin.weight)
                 nn.init.zeros_(lin.bias)

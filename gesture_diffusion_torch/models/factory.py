@@ -54,10 +54,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def build_model(d_pose: int, model_params, device=None,
                 generator: Optional[torch.Generator] = None,
-                encoder_dtype: Optional[str] = None) -> GestureDenoiser:
+                encoder_dtype: Optional[str] = None,
+                dtype: Optional[str] = None) -> GestureDenoiser:
     """Eval-mode ``GestureDenoiser`` on ``device`` (the card by default).
     With ``generator`` the weights are drawn from it (``init_random_``).
-    ``encoder_dtype`` ("bfloat16" or None) is ``Train.encoder_dtype``."""
+    ``dtype`` ("bfloat16" or None) is ``Train.dtype``, the whole model's
+    compute dtype; ``encoder_dtype`` is ``Train.encoder_dtype``, the
+    trunk's, which overrides it there."""
     dev = resolve_device(device)
     decoder_params = model_params.get("Decoder")
     if decoder_params.type not in SUPPORTED_DECODERS:
@@ -89,6 +92,7 @@ def build_model(d_pose: int, model_params, device=None,
         decoder_type=decoder_params.type,
         pose_seed_len=(gen.get("pose_seed_len", 10) if gen is not None else 10),
         encoder_dtype=encoder_dtype,
+        dtype=dtype,
         **extras,
     ))
     if generator is not None:
@@ -106,11 +110,13 @@ class ModelBundle(NamedTuple):
 
 def build_all(config, d_pose: int, device=None,
               generator: Optional[torch.Generator] = None,
-              encoder_dtype: Optional[str] = None) -> ModelBundle:
+              encoder_dtype: Optional[str] = None,
+              dtype: Optional[str] = None) -> ModelBundle:
     """The model and its diffusion schedules (training and respaced)."""
     model_params = config.Model
     model = build_model(d_pose, model_params, device=device,
-                        generator=generator, encoder_dtype=encoder_dtype)
+                        generator=generator, encoder_dtype=encoder_dtype,
+                        dtype=dtype)
     dp = model_params.get("Diffusion")
     if dp.get("type", "gaussian") != "gaussian":
         raise ValueError(f"Unsupported diffusion type {dp.type}")

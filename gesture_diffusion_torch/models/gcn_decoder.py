@@ -8,7 +8,7 @@ the flattened features.  Module names are the reference checkpoint's: the
 graph convolution is a 1x1 ``Conv2d`` (``layers.{i}.gcn.conv``) whose
 output channels are partition-major, and the attention blocks sit in the
 layer itself; the out head is a plain ``Linear`` (``out_layers``), with
-no LayerNorm.
+no LayerNorm.  ``dtype`` is the compute dtype, as in ``decoders.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..ops.graph import build_graph
 from .attention import PositionalEncoding
+from .compute_dtype import LayerNorm, Linear
 from .decoders import LN_EPS, CrossAttentionLayer
 
 
@@ -26,25 +27,31 @@ class GraphConv(nn.Module):
     """K-partition graph conv (temporal kernel 1): a 1x1 conv C -> K*C_out,
     then the contraction with the (K, V, V) adjacency."""
 
-    def __init__(self, in_channels: int, out_channels: int, n_partitions: int):
+    def __init__(self, in_channels: int, out_channels: int, n_partitions: int,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
         self.out_channels, self.n_partitions = out_channels, n_partitions
         self.conv = nn.Conv2d(in_channels, out_channels * n_partitions, 1)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
         """x: (N, T, V, C) -> (N, T, V, out_channels)."""
-        y = F.linear(x, self.conv.weight[:, :, 0, 0], self.conv.bias)
+        w, b = self.conv.weight[:, :, 0, 0], self.conv.bias
+        if self.dtype is not None:
+            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+        y = F.linear(x, w, b)
         y = y.unflatten(-1, (self.n_partitions, self.out_channels))
         return torch.einsum("ntvkc,kvw->ntwc", y, A.to(y.dtype))
 
 
 class CrossAttentionGCNLayer(CrossAttentionLayer):
     def __init__(self, d_model: int, n_vertices: int, n_partitions: int,
-                 heads: int, dropout: float = 0.0, ff_memory: bool = True):
-        super().__init__(d_model, heads, dropout, ff_memory)
+                 heads: int, dropout: float = 0.0, ff_memory: bool = True,
+                 dtype: "torch.dtype | None" = None):
+        super().__init__(d_model, heads, dropout, ff_memory, dtype)
         dv = d_model // n_vertices
-        self.norm_gcn = nn.LayerNorm(dv, eps=LN_EPS)
-        self.gcn = GraphConv(dv, dv, n_partitions)
+        self.norm_gcn = LayerNorm(dv, LN_EPS, dtype)
+        self.gcn = GraphConv(dv, dv, n_partitions, dtype)
 
     def forward(self, x: torch.Tensor, A: torch.Tensor, memory: torch.Tensor
                 ) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -62,7 +69,8 @@ class CrossAttentionGCN(nn.Module):
 
     def __init__(self, d_x: int, d_memory: int, d_model: int, heads: int,
                  n_layers: int, d_out: int, dropout: float = 0.0,
-                 graph_layout: str = "beat", graph_strategy: str = "spatial"):
+                 graph_layout: str = "beat", graph_strategy: str = "spatial",
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
         A = torch.from_numpy(build_graph(graph_layout, graph_strategy))
         n_partitions, v, _ = A.shape
@@ -73,14 +81,14 @@ class CrossAttentionGCN(nn.Module):
         self.register_buffer("A", A, persistent=False)
         self.n_vertices, self.d_model = v, d_model
         dv = d_model // v
-        self.emb_x = nn.Linear(d_x // v, dv)
-        self.emb_mem = nn.Linear(d_memory, d_model)
+        self.emb_x = Linear(d_x // v, dv, compute_dtype=dtype)
+        self.emb_mem = Linear(d_memory, d_model, compute_dtype=dtype)
         self.pe = PositionalEncoding(d_model, dropout)
         self.layers = nn.ModuleList(
             CrossAttentionGCNLayer(d_model, v, n_partitions, heads, dropout,
-                                   ff_memory=i < n_layers - 1)
+                                   ff_memory=i < n_layers - 1, dtype=dtype)
             for i in range(n_layers))
-        self.out_layers = nn.Linear(dv, d_out // v)
+        self.out_layers = Linear(dv, d_out // v, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         n, t, _ = x.shape

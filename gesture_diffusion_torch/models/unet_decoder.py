@@ -26,6 +26,8 @@ Module names are the reference checkpoint's (GLIDE's ``input_blocks``,
 ``middle_block``, ``output_blocks``, ``out``, ``time_embed``; a ResBlock's
 ``in_layers`` / ``emb_layers`` / ``out_layers`` / ``skip_connection``;
 1x1 ``Conv1d`` projections ``qkv``, ``encoder_kv``, ``proj_out``).
+``dtype`` is the compute dtype of every conv, projection and GroupNorm
+output (``models/compute_dtype.py``), None for the parameters' own.
 """
 
 from __future__ import annotations
@@ -36,26 +38,34 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .compute_dtype import Conv1d, Conv2d, Linear
+
 GN_GROUPS, GN_EPS = 32, 1e-5
 
 
 class GroupNorm32(nn.GroupNorm):
     """GLIDE's ``GroupNorm32``: statistics in float32 at least (a bf16 or
     fp16 input is normalised in float32, as flax computes it), the output
-    in the input's dtype."""
+    in ``compute_dtype``, else in the input's dtype."""
+
+    def __init__(self, *args, compute_dtype: "torch.dtype | None" = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(
-            x.to(torch.promote_types(x.dtype, torch.float32))).to(x.dtype)
+            x.to(torch.promote_types(x.dtype, torch.float32))).to(
+                self.compute_dtype or x.dtype)
 
 
-def group_norm(channels: int) -> nn.GroupNorm:
-    return GroupNorm32(GN_GROUPS, channels, eps=GN_EPS)
+def group_norm(channels: int, dtype: "torch.dtype | None" = None) -> nn.GroupNorm:
+    return GroupNorm32(GN_GROUPS, channels, eps=GN_EPS, compute_dtype=dtype)
 
 
 def conv_nd(dims: int, *args, **kwargs) -> nn.Module:
-    """``nn.Conv1d`` or ``nn.Conv2d``."""
-    return (nn.Conv1d, nn.Conv2d)[dims - 1](*args, **kwargs)
+    """A 1-D or 2-D conv (``compute_dtype`` as a keyword)."""
+    return (Conv1d, Conv2d)[dims - 1](*args, **kwargs)
 
 
 def zero_(module: nn.Module) -> nn.Module:
@@ -79,13 +89,15 @@ class ResBlock(TimestepBlock):
     def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
                  out_channels: Optional[int] = None, use_conv: bool = False,
                  use_scale_shift_norm: bool = False, dims: int = 2,
-                 up: bool = False, down: bool = False):
+                 up: bool = False, down: bool = False,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
         out_channels = out_channels or channels
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
-            group_norm(channels), nn.SiLU(),
-            conv_nd(dims, channels, out_channels, 3, padding=1))
+            group_norm(channels, dtype), nn.SiLU(),
+            conv_nd(dims, channels, out_channels, 3, padding=1,
+                    compute_dtype=dtype))
         self.updown = up or down
         if up:
             self.h_upd = Upsample(channels, False, dims)
@@ -96,18 +108,20 @@ class ResBlock(TimestepBlock):
         else:
             self.h_upd = self.x_upd = nn.Identity()
         self.emb_layers = nn.Sequential(
-            nn.SiLU(), nn.Linear(emb_channels, (2 if use_scale_shift_norm else 1)
-                                 * out_channels))
+            nn.SiLU(), Linear(emb_channels, (2 if use_scale_shift_norm else 1)
+                              * out_channels, compute_dtype=dtype))
         self.out_layers = nn.Sequential(
-            group_norm(out_channels), nn.SiLU(), nn.Dropout(dropout),
-            zero_(conv_nd(dims, out_channels, out_channels, 3, padding=1)))
+            group_norm(out_channels, dtype), nn.SiLU(), nn.Dropout(dropout),
+            zero_(conv_nd(dims, out_channels, out_channels, 3, padding=1,
+                          compute_dtype=dtype)))
         if out_channels == channels:
             self.skip_connection = nn.Identity()
         elif use_conv:
             self.skip_connection = conv_nd(dims, channels, out_channels, 3,
-                                           padding=1)
+                                           padding=1, compute_dtype=dtype)
         else:
-            self.skip_connection = conv_nd(dims, channels, out_channels, 1)
+            self.skip_connection = conv_nd(dims, channels, out_channels, 1,
+                                           compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         """x: (N, C, *spatial); emb: (N, emb_channels)."""
@@ -136,7 +150,8 @@ class UNetAttentionBlock(nn.Module):
 
     def __init__(self, channels: int, num_heads: int = 1,
                  num_head_channels: int = -1,
-                 encoder_channels: Optional[int] = None):
+                 encoder_channels: Optional[int] = None,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
         if num_head_channels != -1:
             if channels % num_head_channels:
@@ -144,11 +159,12 @@ class UNetAttentionBlock(nn.Module):
                                  f"width {num_head_channels}")
             num_heads = channels // num_head_channels
         self.heads = num_heads
-        self.norm = group_norm(channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
+        self.norm = group_norm(channels, dtype)
+        self.qkv = Conv1d(channels, 3 * channels, 1, compute_dtype=dtype)
         if encoder_channels is not None:
-            self.encoder_kv = nn.Conv1d(encoder_channels, 2 * channels, 1)
-        self.proj_out = zero_(nn.Conv1d(channels, channels, 1))
+            self.encoder_kv = Conv1d(encoder_channels, 2 * channels, 1,
+                                     compute_dtype=dtype)
+        self.proj_out = zero_(Conv1d(channels, channels, 1, compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -176,9 +192,11 @@ class Downsample(nn.Module):
     """Halves the signal: a stride-2 conv (padding 1), or without
     ``use_conv`` a 2-wide average pool."""
 
-    def __init__(self, channels: int, use_conv: bool = True, dims: int = 1):
+    def __init__(self, channels: int, use_conv: bool = True, dims: int = 1,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
-        self.op = (conv_nd(dims, channels, channels, 3, stride=2, padding=1)
+        self.op = (conv_nd(dims, channels, channels, 3, stride=2, padding=1,
+                           compute_dtype=dtype)
                    if use_conv else (nn.AvgPool1d, nn.AvgPool2d)[dims - 1](2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,9 +207,11 @@ class Upsample(nn.Module):
     """Doubles the signal: a nearest-neighbour resize, then (with
     ``use_conv``) a conv."""
 
-    def __init__(self, channels: int, use_conv: bool = True, dims: int = 1):
+    def __init__(self, channels: int, use_conv: bool = True, dims: int = 1,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
-        self.conv = (conv_nd(dims, channels, channels, 3, padding=1)
+        self.conv = (conv_nd(dims, channels, channels, 3, padding=1,
+                             compute_dtype=dtype)
                      if use_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -231,7 +251,8 @@ class UNet(nn.Module):
                  num_head_channels: int = -1, num_heads_upsample: int = -1,
                  use_scale_shift_norm: bool = False,
                  resblock_updown: bool = False,
-                 encoder_channels: Optional[int] = None):
+                 encoder_channels: Optional[int] = None,
+                 dtype: "torch.dtype | None" = None):
         super().__init__()
         mc, attn_res = model_channels, set(attention_resolutions)
         if num_heads_upsample == -1:
@@ -239,15 +260,16 @@ class UNet(nn.Module):
 
         def res(ch, out, **kw):
             return ResBlock(ch, mc, dropout, out, dims=dims,
-                            use_scale_shift_norm=use_scale_shift_norm, **kw)
+                            use_scale_shift_norm=use_scale_shift_norm,
+                            dtype=dtype, **kw)
 
         def attn(ch, heads):
             return UNetAttentionBlock(ch, heads, num_head_channels,
-                                      encoder_channels)
+                                      encoder_channels, dtype)
 
         ch = channel_mult[0] * mc
         self.input_blocks = nn.ModuleList([TimestepEmbedSequential(
-            [conv_nd(dims, in_channels, ch, 3, padding=1)])])
+            [conv_nd(dims, in_channels, ch, 3, padding=1, compute_dtype=dtype)])])
         chans, ds = [ch], 1
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
@@ -260,7 +282,7 @@ class UNet(nn.Module):
             if level != len(channel_mult) - 1:
                 self.input_blocks.append(TimestepEmbedSequential(
                     [res(ch, ch, down=True) if resblock_updown
-                     else Downsample(ch, conv_resample, dims)]))
+                     else Downsample(ch, conv_resample, dims, dtype)]))
                 chans.append(ch)
                 ds *= 2
 
@@ -276,13 +298,14 @@ class UNet(nn.Module):
                     block.append(attn(ch, num_heads_upsample))
                 if level and i == num_res_blocks:
                     block.append(res(ch, ch, up=True) if resblock_updown
-                                 else Upsample(ch, conv_resample, dims))
+                                 else Upsample(ch, conv_resample, dims, dtype))
                     ds //= 2
                 self.output_blocks.append(TimestepEmbedSequential(block))
 
         self.out = nn.Sequential(
-            group_norm(ch), nn.SiLU(),
-            zero_(conv_nd(dims, ch, out_channels, 3, padding=1)))
+            group_norm(ch, dtype), nn.SiLU(),
+            zero_(conv_nd(dims, ch, out_channels, 3, padding=1,
+                          compute_dtype=dtype)))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -324,12 +347,14 @@ class UNetAttn(UNet):
                  n_layers: int, d_out: int, dropout: float = 0.0,
                  channel_mult: Sequence[int] = (1, 2, 4),
                  attention_resolutions: Sequence[int] = (1, 2, 4),
-                 window_len: int = 40):
+                 window_len: int = 40, dtype: "torch.dtype | None" = None):
         super().__init__(d_x, d_model, d_out, n_layers, attention_resolutions,
                          dropout, channel_mult, dims=1, num_heads=heads,
-                         use_scale_shift_norm=True, encoder_channels=d_memory)
-        self.time_embed = nn.Sequential(nn.Linear(d_memory, d_model), nn.SiLU(),
-                                        nn.Linear(d_model, d_model))
+                         use_scale_shift_norm=True, encoder_channels=d_memory,
+                         dtype=dtype)
+        self.time_embed = nn.Sequential(
+            Linear(d_memory, d_model, compute_dtype=dtype), nn.SiLU(),
+            Linear(d_model, d_model, compute_dtype=dtype))
         self.pad = _pad_lengths(window_len, len(channel_mult) - 1)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Process groups and the data-axis device mesh.
+"""Process groups and the ("data", "model") device mesh.
 
 Port of ``gesture_diffusion_tpu/parallel/mesh.py``.  The JAX package spans
 devices with one ``jax.sharding.Mesh`` and lets XLA insert the collectives;
@@ -8,18 +8,22 @@ small object that names the devices of the data axis:
 
   * ``init_distributed`` joins this process to its group (env:// under
     torchrun, or an explicit ``tcp://`` address) and returns its rank;
-  * ``make_mesh`` orders the devices of the data axis.  A training run
-    puts rank r on ``mesh.devices[r]``; a ``Generator`` over a mesh runs
-    one kernel instance per device on its share of the batch;
+  * ``make_mesh`` lays the devices out as JAX's ``reshape(n_data,
+    n_model)`` does: rank r is data index ``r // n_model`` and model index
+    ``r % n_model``.  A training run puts rank r on ``mesh.devices[r]``; a
+    ``Generator`` over a data-only mesh runs one kernel instance per
+    device on its share of the batch.  Inside a process group of
+    ``n_data * n_model`` ranks with ``n_model > 1`` it also builds the
+    data and the model subgroups and makes them this process's axes;
   * ``split_batch`` and ``replicate`` stand where ``shard_batch`` and
     ``replicate`` stand: a batch cut into one piece per device, and a copy
     per device;
   * ``active_group`` is what the training path asks to decide between the
     single-process step and the distributed one (global BatchNorm, the
-    batch-global speed losses, DDP).
-
-The ``"model"`` axis (tensor parallelism, ``parallel/tp.py`` in the JAX
-package) is not ported yet: ``make_mesh(n_model > 1)`` raises.
+    batch-global speed losses, DDP): this process's place on the data
+    axis.  ``data_group`` is the group their collectives run over (the
+    world without a model axis), ``model_group`` the one the tensor-
+    parallel layers of ``parallel/tp.py`` run over.
 """
 
 from __future__ import annotations
@@ -32,21 +36,38 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-TP_TODO = ("tensor parallelism (the 'model' axis, JAX parallel/tp.py) is not "
-           "ported yet: ROADMAP queue 1, item 10")
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ordered devices of the data axis.  A device may repeat: two
-    shards on one card is how a machine with one GPU runs the sharded
-    paths (two kernel launches, or two ranks over gloo)."""
+    """The devices of the mesh, rank order: (data, model) row-major.  A
+    device may repeat: two shards on one card is how a machine with one
+    GPU runs the sharded paths (two kernel launches, or two ranks over
+    gloo)."""
 
     devices: Tuple[torch.device, ...]
+    n_model: int = 1
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.devices), "model": 1}
+        return {"data": len(self.devices) // self.n_model, "model": self.n_model}
+
+    @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """The first device of each data row."""
+        return self.devices[::self.n_model]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axes:
+    data: Any            # this process's data group (the ranks of its model index)
+    model: Any           # this process's model group (the ranks of its data row)
+    data_rank: int
+    n_data: int
+    model_rank: int
+    n_model: int
+
+
+_AXES: Optional[_Axes] = None     # set by make_mesh under a model axis
 
 
 def _visible_devices() -> List[torch.device]:
@@ -59,10 +80,14 @@ def _visible_devices() -> List[torch.device]:
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices: Optional[Sequence[Any]] = None) -> Mesh:
-    """A data-axis mesh over ``devices`` (every visible GPU by default).
-    The implicit size uses every device; an explicit ``n_data`` may use
-    fewer, never more.  Raises as the JAX ``make_mesh`` does, and with
-    ``NotImplementedError`` for a model axis, which is not ported."""
+    """An ``n_data x n_model`` mesh over ``devices`` (every visible GPU
+    by default).  The implicit size uses every device; an explicit
+    ``n_data`` may use fewer, never more.  Raises as the JAX
+    ``make_mesh`` does.  Called by every rank of a process group of
+    ``n_data * n_model`` ranks with ``n_model > 1``, it builds the groups
+    of both axes (every rank creates every group, in one order) and makes
+    them this process's axes (``active_group``, ``data_group``,
+    ``model_group``)."""
     devices = [torch.device(d) for d in (
         _visible_devices() if devices is None else devices)]
     if n_data is None:
@@ -78,9 +103,26 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
         raise ValueError(
             f"mesh {n_data}x{n_model} needs {n_data * n_model} devices, "
             f"have {len(devices)}")
-    if n_model != 1:
-        raise NotImplementedError(TP_TODO)
-    return Mesh(tuple(devices[:n_data]))
+    devices = tuple(devices[:n_data * n_model])
+    if n_model == 1 or not (dist.is_available() and dist.is_initialized()):
+        return Mesh(devices, n_model)
+    global _AXES
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != n_data * n_model:
+        raise ValueError(f"mesh {n_data}x{n_model} needs a process group of "
+                         f"{n_data * n_model} ranks, this one has {world}")
+    data_index, model_index = divmod(rank, n_model)
+    model = data = None
+    for d in range(n_data):
+        group = dist.new_group([d * n_model + m for m in range(n_model)])
+        if d == data_index:
+            model = group
+    for m in range(n_model):
+        group = dist.new_group([d * n_model + m for d in range(n_data)])
+        if m == model_index:
+            data = group
+    _AXES = _Axes(data, model, data_index, n_data, model_index, n_model)
+    return Mesh(devices, n_model)
 
 
 def _map(fn, tree):
@@ -107,7 +149,7 @@ def split_batch(batch, mesh: Mesh) -> list:
         raise ValueError(f"batch {size} not divisible by the data axis {n}")
     per = size // n
     return [_map(lambda x, s=s, d=d: x[s * per:(s + 1) * per].to(d), batch)
-            for s, d in enumerate(mesh.devices)]
+            for s, d in enumerate(mesh.data_devices)]
 
 
 def replicate(tree, mesh: Mesh) -> list:
@@ -115,10 +157,10 @@ def replicate(tree, mesh: Mesh) -> list:
     themselves where they already are there); a device that repeats
     shares one copy."""
     copies = {}
-    for d in mesh.devices:
+    for d in mesh.data_devices:
         if d not in copies:
             copies[d] = _map(lambda x, d=d: x.to(d), tree)
-    return [copies[d] for d in mesh.devices]
+    return [copies[d] for d in mesh.data_devices]
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -140,8 +182,10 @@ def init_distributed(coordinator_address: Optional[str] = None,
     CPU): it picks the backend, NCCL or gloo, unless ``backend`` is given
     (gloo also serves CUDA tensors, which lets two ranks share one card),
     and a CUDA device becomes the current one."""
+    global _AXES
     if dist.is_initialized():
         return dist.get_rank()
+    _AXES = None
     if coordinator_address is None:
         if num_processes is not None and num_processes > 1:
             raise ValueError(f"{num_processes} processes need a "
@@ -171,17 +215,37 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def active_group() -> Optional[Tuple[int, int]]:
-    """(rank, world size) of this process's group, None without one.  A
-    group of one counts: it takes the distributed path."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return None
+    """(index, size) of this process on the data axis, None without a
+    process group: its (rank, world size), or under a model axis its
+    data row and the number of rows.  A group of one counts: it takes the
+    distributed path."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    if _AXES is not None:
+        return _AXES.data_rank, _AXES.n_data
+    return dist.get_rank(), dist.get_world_size()
+
+
+def data_group():
+    """The group of the data axis' collectives: the world (None) without
+    a model axis."""
+    return None if _AXES is None else _AXES.data
+
+
+def model_group():
+    """This process's model group, None without a model axis."""
+    return None if _AXES is None else _AXES.model
+
+
+def model_axis() -> Tuple[int, int]:
+    """(index, size) of this process on the model axis; (0, 1) without
+    one."""
+    return (0, 1) if _AXES is None else (_AXES.model_rank, _AXES.n_model)
 
 
 def is_main_process() -> bool:
     """Rank 0, or no group: the process that writes files."""
-    group = active_group()
-    return group is None or group[0] == 0
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def collective_device() -> torch.device:
@@ -193,11 +257,11 @@ def collective_device() -> torch.device:
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, with its gradient: the backward sums
-    the ranks' gradients (``torch.distributed.nn.functional.all_reduce``,
+    """``x`` summed over the data axis, with its gradient: the backward
+    sums the ranks' gradients (``torch.distributed.nn.functional.all_reduce``,
     which recent torch marks deprecated in favour of a private module)."""
     from torch.distributed.nn.functional import all_reduce
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        return all_reduce(x)
+        return all_reduce(x, group=data_group() or dist.group.WORLD)

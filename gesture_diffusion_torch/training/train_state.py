@@ -99,9 +99,20 @@ def assemble_losses(
     return losses
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The 2-norm of all gradients together (one device scalar)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+def global_norm(grads: Sequence[torch.Tensor],
+                sharded: Sequence[torch.Tensor] = (), group=None) -> torch.Tensor:
+    """The 2-norm of all gradients together (one device scalar).  Under
+    tensor parallelism ``grads`` are the whole (replicated) ones and
+    ``sharded`` this rank's slices of the split ones, whose squares are
+    summed over the model ``group``: each element counts once."""
+    norms = torch._foreach_norm(list(grads))
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    part = torch.stack(torch._foreach_norm(list(sharded))).square().sum()
+    dist.all_reduce(part, group=group)
+    return torch.sqrt(torch.stack(norms).square().sum() + part)
 
 
 @torch.no_grad()

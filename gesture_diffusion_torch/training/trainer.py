@@ -26,6 +26,15 @@ read all-reduced losses, so every rank decides the same; rank 0 writes
 the checkpoints and metrics.  Without a group the trainer is the
 single-process one.
 
+Tensor parallelism (``parallel/tp.py``): a model sharded with
+``apply_tensor_parallel`` over a ``make_mesh(n_data, n_model)`` mesh
+trains the same way, with the data axis in place of the world: the ranks
+of one model group hold the same rows, so the batch split, the global
+BatchNorm, the speed losses, DDP's gradient all-reduce and the sampler's
+gather run over the data group.  The gradient norm counts each element
+of a split parameter once, and checkpoints and best params hold whole
+tensors (``full_state_dict``), which load into an unsharded model.
+
 PyTorch runs eagerly, so there is no compiled multi-step call (the JAX
 trainer's ``steps_per_call``).  The step reads nothing back to the host
 unless it logs or feeds the loss-aware sampler.
@@ -47,8 +56,14 @@ from torch.profiler import record_function
 
 from ..diffusion.gaussian import Schedule
 from ..diffusion.resample import create_named_schedule_sampler
+from ..interop import flax_msgpack
+from ..interop.jax_import import jax_params_state_dict
 from ..models.denoiser import GestureDenoiser
-from ..parallel.mesh import active_group, collective_device, is_main_process
+from ..parallel.mesh import (active_group, collective_device, data_group,
+                             is_main_process, model_group)
+from ..parallel.tp import (full_optimizer_state, full_state_dict,
+                           is_tensor_parallel, shard_optimizer_state,
+                           sharded_parameters)
 from ..utils.device import resolve_device
 from ..utils.rng import RngStream
 from .checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
@@ -73,18 +88,29 @@ def inpaint_kwargs(model: GestureDenoiser, poses: torch.Tensor) -> dict:
 def load_start_params(model: nn.Module, start_chkpt: str) -> int:
     """Fine-tuning start: copy every entry of a checkpoint's
     ``best_params`` (or of a plain state dict) whose name and shape match
-    the model's; the rest keep their fresh values and are reported.
+    the model's; the rest keep their fresh values and are reported.  A
+    ``.msgpack`` is the JAX package's checkpoint (or params tree): its
+    ``best_params`` are read as the JAX trainer reads them, parameters
+    only, so the BatchNorm statistics keep their fresh values.
     :return: the number of tensors copied."""
-    raw = torch.load(start_chkpt, map_location="cpu", weights_only=True)
-    source = raw.get("best_params", raw)
-    state = model.state_dict()
+    kept = set()
+    if start_chkpt.endswith(".msgpack"):
+        raw = flax_msgpack.load(start_chkpt)
+        source = jax_params_state_dict(raw.get("best_params", raw), model.cfg)
+        kept = {k for k, _ in model.named_buffers()}
+    else:
+        raw = torch.load(start_chkpt, map_location="cpu", weights_only=True)
+        source = raw.get("best_params", raw)
+    # whole tensors (a collective under tensor parallelism); loading
+    # slices them again
+    state = full_state_dict(model)
     loaded, new = 0, []
     for key, value in state.items():
         src = source.get(key)
         if torch.is_tensor(src) and tuple(src.shape) == tuple(value.shape):
             state[key] = src.to(value.dtype)
             loaded += 1
-        else:
+        elif key not in kept:
             new.append(key)
     model.load_state_dict(state)
     for name in new:
@@ -114,7 +140,8 @@ def _rows(n: int):
 
 
 def _wrap_ddp(model: nn.Module) -> nn.Module:
-    """``model`` in ``DistributedDataParallel`` on its device.
+    """``model`` in ``DistributedDataParallel`` on its device, over the
+    data group.
 
     ``find_unused_parameters`` stays False: every parameter of every
     decoder and model type gets a gradient in each step
@@ -128,18 +155,19 @@ def _wrap_ddp(model: nn.Module) -> nn.Module:
         warnings.simplefilter("ignore", FutureWarning)
         return nn.parallel.DistributedDataParallel(
             model, device_ids=[dev] if dev.type == "cuda" else None,
-            broadcast_buffers=False, find_unused_parameters=False)
+            broadcast_buffers=False, find_unused_parameters=False,
+            process_group=data_group())
 
 
 def _mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Each scalar metric averaged over the ranks (one all-reduce): the
-    global batch's loss terms."""
+    """Each scalar metric averaged over the data axis (one all-reduce):
+    the global batch's loss terms."""
     import torch.distributed as dist
 
     world = active_group()[1]
     keys = [k for k, v in metrics.items() if v.ndim == 0]
     stacked = torch.stack([metrics[k] for k in keys])
-    dist.all_reduce(stacked)
+    dist.all_reduce(stacked, group=data_group())
     return {**metrics, **dict(zip(keys, (stacked / world).unbind(0)))}
 
 
@@ -169,9 +197,11 @@ def make_train_step(
     batch's (N x world rows), of which the step takes its rows; the
     dropout masks come from a stream per (step, rank), rank 0's being the
     single process's; the loss terms are averaged over the ranks, and
-    ``mse_per_example`` is this rank's."""
+    ``mse_per_example`` is this rank's.  Under tensor parallelism "rank"
+    is the index on the data axis: a model group's ranks draw alike."""
     rngs = RngStream(seed)
     params = [p for p in model.parameters() if p.requires_grad]
+    split = {id(p) for p in sharded_parameters(model)}
     dropout = any(isinstance(m, nn.Dropout) and m.p > 0
                   for m in model.modules())
     group = active_group()
@@ -209,7 +239,10 @@ def make_train_step(
             losses["loss"].backward()
         with record_function("train_step/optimizer"):
             grads = [p.grad for p in params if p.grad is not None]
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(
+                [p.grad for p in params if p.grad is not None and id(p) not in split],
+                [p.grad for p in params if p.grad is not None and id(p) in split],
+                model_group())
             clip_gradients(grads, grad_norm, grad_norm_clip_value, grad_clip_value)
             lr = lr_schedule(step)
             for param_group in optimizer.param_groups:
@@ -247,7 +280,7 @@ def make_val_step(model: GestureDenoiser, sched: Schedule,
 
 
 def _snapshot(model: nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return {k: v.detach().clone() for k, v in full_state_dict(model).items()}
 
 
 class Trainer:
@@ -307,6 +340,15 @@ class Trainer:
 
         self.sampler = None
         if schedule_sampler not in (None, "uniform"):
+            # the gather enters each example once only over the data group:
+            # over every rank it would enter it n_model times (the layout
+            # the JAX trainer refuses, its dedup_local_pairs)
+            if is_tensor_parallel(model) and data_group() is None:
+                raise ValueError(
+                    "schedule_sampler with a tensor-parallel model needs the "
+                    "mesh's data group (make_mesh in every rank): per-example "
+                    "losses gathered over every rank would enter each example "
+                    "once per model rank")
             self.sampler = create_named_schedule_sampler(
                 schedule_sampler, sched.num_timesteps)
             self._sampler_rng = self.rngs.numpy("schedule_sampler")
@@ -332,6 +374,7 @@ class Trainer:
                                   "best_params": self.best_params},
                 map_location=self.device)
             self.best_params = tree["best_params"]
+            shard_optimizer_state(optimizer, self.model)
             self._step = int(tree.get("step", meta.get("train_step", 0)))
             self.epochs_run = meta.get("epochs_run", 0)
             self.best_metric_value = meta.get("best_metric_value",
@@ -359,8 +402,8 @@ class Trainer:
     def save(self) -> None:
         save_checkpoint(
             self.chkpt_path,
-            {"model": self.model.state_dict(),
-             "optimizer": self.optimizer.state_dict(),
+            {"model": full_state_dict(self.model),
+             "optimizer": full_optimizer_state(self.optimizer, self.model),
              "best_params": self.best_params,
              "step": self._step},
             {"train_step": self._step,

@@ -218,7 +218,6 @@ def test_eval_time_and_gen_phases(cli_run):
 
 
 @pytest.mark.parametrize("path,value,match", [
-    ("Train.dtype", "bfloat16", "Train.dtype"),
     ("Train.world_size", 0, "world_size"),
     ("Model.Encoder.type", "wav2vec2", "Unsupported encoder"),
     ("Model.Decoder.type", "transformer", "Unsupported decoder"),
@@ -245,6 +244,47 @@ def test_unported_settings_raise(tmp_path, path, value, match):
             fn(config, device="cpu")
     assert not os.path.exists(raw["Data"]["spt_dir_path"])
     assert not os.path.exists(raw["Meta"]["log_dir"])
+
+
+def test_train_dtype_trains_and_serves(tmp_path):
+    """``Train.dtype: "bfloat16"`` (the whole model in bf16, which the CLI
+    once refused) runs prep -> data -> train -> gen: the step computes in
+    bf16 on float32 parameters, which the checkpoint holds, and gen serves
+    them through the fused path as the JAX CLI does (its eval builds the
+    model without ``dtype``)."""
+    raw = _smoke_config(tmp_path)
+    raw["Train"]["dtype"] = "bfloat16"
+    with open(raw["Data"]["hierarchy_path"], "w") as f:
+        f.write(cli.hierarchy_template(
+            os.path.join(REPO, "tests", "golden", "synth_fullbody.bvh"), JOINTS,
+            raw["Data"]["hierarchy_extra_joints"]))
+    cfg = _write(tmp_path, raw)
+    built = []
+    real_build_all = cli.build_all
+
+    def build_all(*args, **kw):
+        bundle = real_build_all(*args, **kw)
+        built.append(bundle.model.cfg.dtype)
+        return bundle
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "build_all", build_all)
+        printed = {phase: _run(["--phase", phase, "--config", cfg, "--device", "cpu"])
+                   for phase in ("prep", "data", "train", "gen")}
+    assert built == ["bfloat16", None]
+    log = tmp_path / "log" / "smoke"
+    tree, _ = read_checkpoint(str(log / "chkpts" / "chkpt_seed0.pt"))
+    assert {v.dtype for v in tree["model"].values() if v.is_floating_point()} \
+        == {torch.float32}
+    (metrics,) = log.glob("metrics_*.jsonl")
+    losses = [json.loads(line)["train/loss"] for line in
+              metrics.read_text().splitlines() if "train/loss" in line]
+    assert losses and np.isfinite(losses).all()
+    samples = log / "results" / "samples"
+    assert len(os.listdir(samples)) == N_SPLIT
+    out = _pkl(samples / "sample_0.pkl")["out"]
+    assert out.shape == (SECONDS * 20, 3 * len(JOINTS)) and np.isfinite(out).all()
+    assert "Epoch" in printed["train"]
 
 
 def test_prep_without_synthetic_and_eval_without_checkpoint(tmp_path):

@@ -401,3 +401,105 @@ def test_train_step_dropout_on_card_follows_seed_and_step(card):
         losses.append(float(step(batch, step_no, t=t.cuda(), noise=noise.cuda())["loss"]))
     assert losses[0] == losses[1] != losses[2]
     assert torch.equal(torch.cuda.get_rng_state(), state)
+
+
+_TP_RANK = r"""
+import sys
+rank, port, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, sys.argv[4])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from gesture_diffusion_torch.diffusion import make_diffusion
+from gesture_diffusion_torch.models import DenoiserConfig, GestureDenoiser, speech_encoder
+from gesture_diffusion_torch.parallel import (apply_tensor_parallel, gather_full,
+                                              init_distributed, make_mesh)
+from gesture_diffusion_torch.training import make_adamw, make_train_step
+dev = torch.device("cuda", 0)
+init_distributed(f"localhost:{port}", 2, rank, backend="gloo", device=dev)
+inp = torch.load(f"{work}/inputs.pt", weights_only=True)
+speech_encoder.speech_frontend = lambda w: inp["mel"].to(w.device)
+model = GestureDenoiser(DenoiserConfig(**inp["cfg"])).to(dev)
+model.load_state_dict(inp["state"])
+apply_tensor_parallel(model, make_mesh(1, 2, [dev, dev]))
+sched, _ = make_diffusion("linear", 100, "")
+step = make_train_step(model, sched.to(dev), make_adamw(model.parameters(), 0.0, 0.0),
+                       lambda s: 0.0)
+m = step({k: v.to(dev) for k, v in inp["batch"].items()}, 0, t=inp["t"].to(dev),
+         noise=inp["noise"].to(dev))
+grads = gather_full(model, {k: p.grad for k, p in model.named_parameters()})
+if rank == 0:
+    torch.save({"loss": float(m["loss"]),
+                "grads": {k: v.cpu() for k, v in grads.items()}}, f"{work}/out.pt")
+print("DONE", rank, flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_step_on_card(card, tmp_path, monkeypatch):
+    """One step of two model ranks over gloo sharing the card against the
+    one-process step on the card (TF32 off, one mel): the loss to 1e-5,
+    every gradient outside the SE-ResNet trunk to 1e-5 of max|g|."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from gesture_diffusion_torch.models import speech_encoder
+    from gesture_diffusion_torch.training import make_train_step
+
+    model, batch, t, noise, make_adamw = _train_case("s2g_v2", torch.float32)
+    mel = speech_encoder.speech_frontend(batch["wav"])
+    torch.save({"cfg": model.cfg.__dict__, "state": model.state_dict(), "batch": batch,
+                "t": t, "noise": noise, "mel": mel}, tmp_path / "inputs.pt")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", _TP_RANK, str(r), str(port),
+                               str(tmp_path), repo], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0 and "DONE" in out, err[-3000:]
+    tp = torch.load(tmp_path / "out.pt", weights_only=True)
+    monkeypatch.setattr(speech_encoder, "speech_frontend", lambda w: mel.to(w.device))
+    ref = model.cuda()
+    sched, _ = make_diffusion("linear", 100, "")
+    step = make_train_step(ref, sched.to("cuda"), make_adamw(ref.parameters(), 0.0, 0.0),
+                           lambda s: 0.0)
+    m = step({k: v.cuda() for k, v in batch.items()}, 0, t=t.cuda(), noise=noise.cuda())
+    assert tp["loss"] == pytest.approx(float(m["loss"]), rel=1e-5)
+    grads = {k: p.grad.cpu() for k, p in ref.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads.values())
+    for k, g in grads.items():
+        if not k.startswith(TRUNK):
+            assert float((tp["grads"][k] - g).abs().max()) <= 1e-5 * top, k
+
+
+@pytest.mark.cuda
+def test_bf16_model_on_card_matches_cpu(card):
+    """``dtype="bfloat16"`` (``Train.dtype``): the card's forward against
+    float64 no worse than twice the CPU's bf16 forward, and the fused
+    kernel serving the model's float32 weights against its plain version."""
+    import copy
+
+    model, batch, t, _, _ = _train_case("s2g_v2", torch.float32)
+    bf16 = GestureDenoiser(DenoiserConfig(**{**model.cfg.__dict__, "dtype": "bfloat16"}))
+    bf16.load_state_dict(model.state_dict())
+    x = batch["pose"]
+    with torch.no_grad():
+        ref = copy.deepcopy(model).double().eval()(x.double(), t, batch["wav"])
+        cpu = copy.deepcopy(bf16).eval()(x, t, batch["wav"])
+        gpu = copy.deepcopy(bf16).cuda().eval()(x.cuda(), t.cuda(), batch["wav"].cuda())
+    assert gpu.dtype == torch.bfloat16
+    assert _rel(gpu.cpu().double(), ref) <= 2 * _rel(cpu.double(), ref)
+    sched, tmap = make_diffusion("linear", 1000, "ddim50")
+    gen = Generator(bf16.cuda(), sched, tmap, device="cuda")
+    wav = batch["wav"][:2].cuda()
+    noise = torch.randn(2, T, D_POSE, device="cuda")
+    with torch.no_grad():
+        args = gen.fused_args(wav, D_POSE, T, noise)
+        k = fs.fused_ddim_sample(**args)
+        p = fs.fused_ddim_sample_plain(**args)
+    assert _rel(k[..., :D_POSE], p[..., :D_POSE]) < BAR

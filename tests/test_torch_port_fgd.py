@@ -4,7 +4,7 @@ The motion autoencoder on the JAX package's flax variables, carried over
 with ``motion_ae_state_dict_from_jax``; the Fréchet distance on seeded
 covariances (full, complex and the ill-conditioned case that retries with
 an eps offset); the evaluator's scores on the same features; the port's
-save / load and its refusal of a JAX ``.msgpack`` net.
+save / load and the load of a JAX ``.msgpack`` net.
 """
 
 import os
@@ -151,12 +151,23 @@ def test_save_load_and_load_or_train(tmp_path):
 
 
 def test_jax_msgpack_net_raises(tmp_path):
-    """A JAX package's net at the configured path is named and refused, not
-    trained over."""
+    """A JAX package's net at the configured path, with no .pt beside it,
+    is loaded (no longer refused; the test keeps its name) and never
+    trained over: it scores as the JAX package scores with that file."""
     model, variables, _ = _nets(20, 12, latent_dim=8)
     path = str(tmp_path / "fgd_ae.msgpack")
     jax_fgd.save_motion_ae(path, model, variables)
-    with pytest.raises(ValueError, match="fgd_ae.msgpack"):
-        fgd.load_or_train_motion_ae(path, _windows(8, 20, 12, 9), steps=2,
-                                    device="cpu")
+    net = fgd.load_or_train_motion_ae(path, _windows(8, 20, 12, 9), steps=2,
+                                      device="cpu")
     assert not os.path.exists(str(tmp_path / "fgd_ae.pt"))
+    assert (net.length, net.pose_dim, net.latent_dim) == (20, 12, 8)
+    ours = fgd.EmbeddingSpaceEvaluator(net)
+    theirs = jax_fgd.EmbeddingSpaceEvaluator(*jax_fgd.load_motion_ae(path))
+    fake, true = _windows(48, 20, 12, 6), _windows(48, 20, 12, 7)
+    for e in (ours, theirs):
+        e.push_samples(fake, true)
+    (fd, dist), (fd_ref, dist_ref) = ours.get_scores(), theirs.get_scores()
+    assert fd == pytest.approx(fd_ref, rel=1e-4)
+    assert dist == pytest.approx(dist_ref, rel=1e-5)
+    assert ours.get_diversity_scores() == pytest.approx(
+        theirs.get_diversity_scores(), rel=1e-5)

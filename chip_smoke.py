@@ -10,7 +10,11 @@ kernel serves; the pymo mocap transforms and the model zoo's other stacks.
 
 Phases (any failure raises and the script exits non-zero):
   1. build every CUDA kernel of the path from ``gesture_diffusion_torch/csrc``
-     (nvcc at first use, into ``build/torch_kernels/``);
+     (nvcc at first use, into ``build/torch_kernels/``): the fused
+     sampler's bf16 and float32 instantiations, and beside them, in a
+     second nvcc started at the same time and cached as the package's
+     library is, ``tests/fixtures/fused_ddim_bf16_only.cu`` (the source
+     before the float32 instantiation) for phase 4b;
   2. build the models of ``configs/beat-ours.json`` (HA2G encoder, 4-layer
      oneway decoder, d_model 256, d_pose 123, 40-frame windows, 1000 steps):
      the flagship s2g_v2 and, with ``Model.type`` overridden, default and
@@ -20,20 +24,35 @@ Phases (any failure raises and the script exits non-zero):
      cluster size and at every size the plan can choose (1, 2, 4, 8 blocks
      per clip, forced): DDIM with the identity and the x0 blend (also
      printed against the float32 scan sampler), x_add, DDPM with either
-     blend, the 92-row memory, and all of them at once; check that the
-     Python cluster plan is the library's; print the moments of the
+     blend, the 92-row memory, and all of them at once; then the same for
+     the float32 instantiation on the bf16 pack and on an f32 pack, held
+     to 1e-4 (or twice the plain version's own distance between the card
+     and the CPU, printed, where that is over 5e-5); check that the
+     Python cluster plans are the library's; print the moments of the
      kernel's noise and check it bit for bit against the plain version's
-     at every cluster size;
+     at every cluster size and in every instantiation;
   4. time the kernel, its plain version and the bound at 1000 steps,
-     batches 1 and 64, for each variant, at the planned cluster size;
+     batches 1 and 64, for each variant of the bf16 instantiation and for
+     the float32 one on bf16 and on f32 weights, at the planned cluster
+     size (the float32 bound: bf16 over 3 passes on bf16 weights, TF32
+     over 3 on f32 ones; ``flops_rate``); 4b. hold the bf16 instantiation
+     bit for bit against the bf16-only source at ddim50 (DDIM, DDPM with
+     the x0 blend, batches 1 and 64, every cluster size);
   5. the main paths, each with the launch count set to 0 before it and read
      after it (the cluster size used at batches 1 and 64 is printed and
-     must be above 1): the flagship ``generate_sample`` (DDIM) at batches 1 and 64
-     and ``generate_sequence`` over two 10 s clips; the default type
-     (DDIM, 92 memory rows); the inpaint type with DDPM and a seed blend;
-     the flagship with DDPM; ``GestureStream`` against ``generate_sequence``
-     on the same noise; ``eval_bpd`` at two ``t_block``s (no hand-written
-     kernel on that path);
+     must be above 1), under the Generator's default compute-dtype policy
+     (float32 at one or two clips, else bf16; each line names the
+     instantiations it launched): the flagship ``generate_sample`` (DDIM)
+     at batches 1 and 64, at batch 1 also with ``fused_dtype`` bf16 and
+     float32, and ``generate_sequence`` over two 10 s clips; the default type
+     (DDIM, 92 memory rows), the inpaint type with DDPM and a seed blend
+     and the flagship with DDPM, each at batches 1 and 64;
+     ``GestureStream`` against ``generate_sequence`` on the same noise;
+     ``eval_bpd`` at two ``t_block``s (no hand-written kernel on that
+     path).  The launches are counted by row of the kernels line
+     (``counted``): the bf16 instantiation's by variant, the float32 one's
+     by pack; every row must have launches here, and again over phases
+     5-16;
   6. training at full width (``configs/beat-ours.json``, batch 64, T 40,
      32 000-sample wav, 1000 diffusion steps) on seeded synthetic data of
      8 batches, through ``Trainer.train``: windows/s (one epoch's steps
@@ -72,8 +91,8 @@ Phases (any failure raises and the script exits non-zero):
   9. ``configs/tedexp-ours.json`` at full width (``tedexp_paths``; the
      10-layer cross-attention decoder, d_model 512, d_pose 126, 34-frame
      windows at 15 fps), which no fused kernel serves: ``generate_sample``
-     at batches 1 and 32 and ``generate_sequence`` over 2 x 10 s on the
-     scan sampler at 1000 steps; one ``denoise`` call and a 50-step sample
+     at batches 1 and 32 at 1000 steps and ``generate_sequence`` over
+     2 x 10 s at ddim50, on the scan sampler; one ``denoise`` call and a 50-step sample
      on the card against the CPU (TF32 off); queued training at batch 32
      (windows/s, peak MB) and one batch-4 step against the CPU (phase 6's
      bars); the phase CLI on ``Data.synthetic`` (42 joints in euler, 8/4/4
@@ -130,7 +149,10 @@ Phases (any failure raises and the script exits non-zero):
      on the card with no ``.pt`` beside it (fused launches counted); the
      card's scan sample on its weights against the JAX sample recorded
      beside it (1e-4, TF32 off); the kernel at its shapes;
-  17. print the kernels' JSON line and, last, the device line.
+  17. print the launches of each instantiation over the main paths (each
+     must be above 0), the kernels' JSON line (the four variants of the
+     bf16 instantiation, then the float32 one on bf16 and on f32 weights)
+     and, last, the device line.
 
     python3 chip_smoke.py --only corpus tedexp decoders mocap zoo multi tp dtype jax-chkpt
 
@@ -142,8 +164,10 @@ Needs CUDA; imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -171,8 +195,18 @@ TRUNK = "speech_encoder.wav_encoder.feat_extractor."
 # cuDNN sum in float32 in another order; relative to max |vb|
 BPD_BAR = 1e-3
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
+H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak (H100 SXM data sheet)
 H100_HBM_BPS = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
 TPU_KERNEL = "gesture_diffusion_tpu/ops/fused_sampler.py"
+# the float32 instantiation against its plain version (float32 on the card,
+# TF32 off), ddim50: 1e-4 of max|ref|, unless the plain version's own
+# distance from the CPU's run is over F32_FLOOR; then twice that distance
+F32_BAR, F32_FLOOR = 1e-4, 5e-5
+#: the bar of float32-compute comparisons, set in phase 3 from that distance
+f32_bar = [F32_BAR]
+# the bf16 instantiation as it was before the float32 one was added, built
+# beside the package's source and held bit for bit against it
+BF16_ONLY = os.path.join(REPO, "tests", "fixtures", "fused_ddim_bf16_only.cu")
 
 
 def log(*args):
@@ -208,18 +242,36 @@ def fused_flops(n, t, nm, d, dp, f, layers, steps, hoisted=True) -> float:
 
 def fused_bytes(args: dict) -> float:
     """Bytes the kernel must move: each input read once, the output written
-    once (the pack's kernel-side weights, bf16 memory and token table)."""
+    once (the pack's weights as the pack holds them, the memory rows and
+    the token table in the compute dtype)."""
     p = args["packed"]
     n, t, dp = args["x_T"].shape
     nm, d = args["mem_rows"].shape[1:]
     s = args["num_steps"]
+    ob = 4 if args["compute_dtype"] == torch.float32 else 2
     skip = ("w_sp1", "b_sp1", "w_sp2", "b_sp2", "w_emm", "b_emm", "pe_m0")
     weights = sum(w.numel() * w.element_size()
                   for k, w in p._asdict().items() if k not in skip)
     optional = sum(n * t * dp * 4 for k in ("blend_a", "blend_b", "x_add")
                    if args[k] is not None)
-    return float(weights + 2 * n * t * dp * 4 + n * nm * d * 2 + s * d * 2
+    return float(weights + 2 * n * t * dp * 4 + n * nm * d * ob + s * d * ob
                  + s * 4 * args["coefs"].shape[1] + optional)
+
+
+def flops_rate(args: dict) -> float:
+    """The card's rate for the call's products: bf16 on the tensor cores,
+    or for float32 compute the fastest float32-accurate product the tensor
+    cores offer.  On bf16 weights: TF32 over 2 passes (a_hi*w + a_lo*w, the
+    weight exact in TF32), or bf16 over 3 (the activation split into three
+    bf16 pieces, within 2^-25 of it together, each piece times the exact
+    bf16 weight exact in the f32 accumulator); bf16 over 3 is faster.  On
+    f32 weights: TF32 over 3 passes (hi*hi + hi*lo + lo*hi) or bf16 over 6,
+    the same rate."""
+    if args["compute_dtype"] != torch.float32:
+        return H100_BF16_FLOPS
+    if args["packed"].w_embx.dtype == torch.float32:
+        return max(H100_TF32_FLOPS / 3, H100_BF16_FLOPS / 6)
+    return max(H100_TF32_FLOPS / 2, H100_BF16_FLOPS / 3)
 
 
 def bound_ms(args: dict) -> tuple:
@@ -230,8 +282,8 @@ def bound_ms(args: dict) -> tuple:
     nm, d = args["mem_rows"].shape[1:]
     shape = (n, t, nm, d, dp, p.ff_w1.shape[2], args["n_layers"],
              args["num_steps"])
-    t_ops = fused_flops(*shape) / H100_BF16_FLOPS * 1e3
-    t_every = fused_flops(*shape, hoisted=False) / H100_BF16_FLOPS * 1e3
+    t_ops = fused_flops(*shape) / flops_rate(args) * 1e3
+    t_every = fused_flops(*shape, hoisted=False) / flops_rate(args) * 1e3
     t_bytes = fused_bytes(args) / H100_HBM_BPS * 1e3
     return ((t_ops, "operations", t_every) if t_ops >= t_bytes
             else (t_bytes, "bytes", t_every))
@@ -271,14 +323,23 @@ def make_check(worst: dict, worst_c: dict):
     """Phase 3's comparison of the fused kernel with its plain version on
     the same arguments, at the planned and at every forced cluster size:
     ``check(variant, label, args, scan=None, steps=...)`` logs the errors,
-    folds them into ``worst`` (variant -> [relative, absolute]) and
-    ``worst_c`` (cluster size -> relative), and raises above KERNEL_BAR.
-    Its launches are comparisons: callers read the main path's launch count
-    before calling it.  A cluster size is forced where it divides the
-    heads (the flagship's 8 take every size)."""
+    folds them into ``worst`` (variant -> [relative, absolute]; float32
+    compute under "f32" or, on an f32 pack, "f32w", whatever the variant)
+    and ``worst_c`` (cluster size -> relative), and raises above the bar
+    of the compute dtype (KERNEL_BAR for bf16, ``f32_bar`` for float32).
+    Its launches are comparisons: it leaves the launch counts as it found
+    them.  A cluster size is forced where it divides the heads (the
+    flagship's 8 take every size)."""
     from gesture_diffusion_torch.ops import fused_sampler as fs
 
     def check(variant, label, args, scan=None, steps="ddim50"):
+        f32 = args["compute_dtype"] == torch.float32
+        if f32:
+            label = f"float32 compute ({variant}) {label}"
+            variant = ("f32w" if args["packed"].w_embx.dtype == torch.float32
+                       else "f32")
+        bar = f32_bar[0] if f32 else KERNEL_BAR
+        counts = fs.launches, dict(fs.launches_by_dtype)
         with torch.no_grad():
             k = fs.fused_ddim_sample(**args)
             planned = fs.last_cluster
@@ -286,6 +347,7 @@ def make_check(worst: dict, worst_c: dict):
                       for c in fs.CLUSTER_SIZES if args["heads"] % c == 0}
             torch.cuda.synchronize()
             p = fs.fused_ddim_sample_plain(**args)
+        fs.launches, fs.launches_by_dtype = counts[0], counts[1]
         kk, pp = k[..., :D_POSE], p[..., :D_POSE]
         r, a = rel(kk, pp), float((kk - pp).abs().max())
         per_c = {c: rel(kc[..., :D_POSE], pp) for c, kc in forced.items()}
@@ -308,12 +370,31 @@ def make_check(worst: dict, worst_c: dict):
             f"{float(pp.abs().max()):.3e}); forced C "
             + ", ".join(f"{c}: {rc:.3e}" for c, rc in per_c.items()) + extra)
         finite = all(bool(torch.isfinite(x).all()) for x in (k, *forced.values()))
-        if not finite or max(r, *per_c.values()) > KERNEL_BAR:
+        if not finite or max(r, *per_c.values()) > bar:
             raise AssertionError(
-                f"fused kernel off its plain version: {r:.3e} (forced C: "
-                f"{per_c}) > bar {KERNEL_BAR}")
+                f"fused kernel off its plain version ({label}): {r:.3e} "
+                f"(forced C: {per_c}) > bar {bar:.3e}")
 
     return check
+
+
+def reset_counts():
+    """Set the fused kernel's launch counts to 0, just before a main path."""
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    fs.launches, fs.launches_by_dtype = 0, {}
+
+
+def counted(variant: str, into: dict = None) -> dict:
+    """The launches since ``reset_counts()`` by row of the kernels line,
+    added into ``into``: the bf16 instantiation's under ``variant``, the
+    float32 one's under "f32" (bf16 weights) or "f32w" (f32 weights)."""
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    into = {} if into is None else into
+    for (compute, weights), k in fs.launches_by_dtype.items():
+        row = (variant if compute != torch.float32
+               else "f32w" if weights == torch.float32 else "f32")
+        into[row] = into.get(row, 0) + k
+    return into
 
 
 def nvidia_smi() -> str:
@@ -627,14 +708,15 @@ CLI_STEPS = 20           # 5 steps an epoch at batch 64: 4 epochs
 BPD_KEYS = ("total_bpd", "prior_bpd", "vb", "x_start_mse", "mse")
 
 
-def cli_paths(smi, check) -> int:
+def cli_paths(smi, check) -> dict:
     """Phase 7: the port's phase CLI end to end at full width, in process,
     on the card (no --device): ``configs/beat-ours.json`` with
     ``Data.synthetic`` (41 joints, 20 s samples) and a hierarchy template
     pruned from ``tests/golden/synth_fullbody.bvh``.  Then the kernel at
     the CLI's shapes on the trained weights, through ``check`` (phase 3's
     comparison with the plain version).  Returns the fused kernel's
-    launches in eval, eval-time and gen; raises on any failed check."""
+    launches in eval, eval-time and gen by row of the kernels line
+    (``counted``); raises on any failed check."""
     import contextlib
     import io
     import pickle
@@ -676,10 +758,10 @@ def cli_paths(smi, check) -> int:
         f"{raw['Train']['batch_size']}, hierarchy of "
         f"{hierarchy.count('ROOT ') + hierarchy.count('JOINT ')} joints")
 
-    seconds, printed, launched = {}, {}, {}
+    seconds, printed, launched, rows = {}, {}, {}, {}
     for phase in CLI_PHASES:
         out = io.StringIO()
-        fs.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -687,6 +769,7 @@ def cli_paths(smi, check) -> int:
         torch.cuda.synchronize()
         seconds[phase] = time.perf_counter() - t0
         launched[phase] = fs.launches
+        counted("ddim", rows)
         printed[phase] = out.getvalue()
         for line in printed[phase].splitlines():
             if line.startswith("[Info] Epoch") or "path=" in line:
@@ -801,7 +884,7 @@ def cli_paths(smi, check) -> int:
     check("ddim", f"batch {n_gen:2d} x0-blend (gen's first window, trained weights)",
           gen_args, steps=f"[cli] {steps} steps")
     tmp.cleanup()
-    return sum(served.values())
+    return rows
 
 
 # -- phase 8: the corpus ends of a user's run ------------------------------------
@@ -905,7 +988,7 @@ def write_corpus(src: str) -> int:
     return bvh_bytes
 
 
-def corpus_paths(smi, check) -> int:
+def corpus_paths(smi, check) -> tuple:
     """Phase 8: a user's run from the corpus to BVH files and video, on the
     card, through the port: a synthetic BEAT tree at the corpus's sizes;
     the CLI's prep -> data -> train -> gen (no --device) on
@@ -913,8 +996,9 @@ def corpus_paths(smi, check) -> int:
     the native BVH parser against its numpy route; the kernel at gen's
     shapes on the trained weights through ``check``; then
     ``sample2bvh_batch`` with an exact round trip, forward kinematics and
-    a raw AVI with the speech.  Returns gen's fused-kernel launches and
-    the generated BVH of the test sequence, parsed back."""
+    a raw AVI with the speech.  Returns gen's fused-kernel launches by row
+    of the kernels line (``counted``) and the generated BVH of the test
+    sequence, parsed back."""
     import contextlib
     import io
     import pickle
@@ -964,7 +1048,7 @@ def corpus_paths(smi, check) -> int:
     walls, printed, launched = {}, {}, {}
     for phase in ("prep", "data", "train", "gen"):
         out = io.StringIO()
-        fs.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -972,6 +1056,8 @@ def corpus_paths(smi, check) -> int:
         torch.cuda.synchronize()
         walls[phase] = time.perf_counter() - t0
         launched[phase] = fs.launches
+        if phase == "gen":
+            rows = counted("ddim")
         printed[phase] = out.getvalue()
         for line in printed[phase].splitlines():
             if line.startswith(("[Error]", "[Info] Skipped", "[Info] Epoch",
@@ -1151,7 +1237,7 @@ def corpus_paths(smi, check) -> int:
             or len({fr.tobytes() for fr in frames}) < 2):
         raise AssertionError("export: BVH round trip, kinematics or AVI not right")
     tmp.cleanup()
-    return launched["gen"], generated
+    return rows, generated
 
 
 # -- phase 9: TED-Expressive ---------------------------------------------------
@@ -1168,6 +1254,10 @@ TED_DENOISE_BAR, TED_SAMPLE_BAR = 1e-4, 1e-3
 # float32 error is held to 4 times the CPU's here
 TED_TRUNK_RATIO = 4.0
 TED_CLI_SECONDS = 20
+# generate_sequence: 2 x 10 s (five windows, four seams) on the schedule
+# respaced to TED_SEQ_RESPACING; at 1000 host-bound scan steps a window
+# takes 38-48 s, which generate_sample's lines already time
+TED_SEQ_SECONDS, TED_SEQ_RESPACING = 10.0, "ddim50"
 TED_CLI_SPLITS = {"n_train": 8, "n_val": 4, "n_test": 4}
 TED_CLI_STEPS = 6        # one epoch: 8 x 27 windows at batch 32
 # eval-time alone makes 20 calls of the whole reverse process: the CLI run
@@ -1182,7 +1272,8 @@ def tedexp_paths(smi, dev) -> dict:
     cross-attention decoder, d_model 512, 8 heads, d_pose 126 (42 joints in
     euler), 34-frame windows at 15 fps, 1000 steps) with random seeded
     weights, through the port's entry points: serving (``generate_sample``
-    at batches 1 and 32, ``generate_sequence`` over 2 x 10 s, all on the
+    at batches 1 and 32, ``generate_sequence`` over 2 x 10 s at ddim50,
+    all on the
     scan sampler), the card against the CPU (one ``denoise`` call, a
     50-step DDIM sample, one train step), queued training at the config's
     batch of 32, and the phase CLI on ``Data.synthetic``.  Returns a
@@ -1268,21 +1359,26 @@ def tedexp_paths(smi, dev) -> dict:
                 or not torch.isfinite(out).all()):
             raise AssertionError(f"tedexp generate_sample at batch {n} failed")
         summary[f"sample_ms_{n}"] = mean_ms
-    wav_long = seeded_audio(96, 2, 10.0)
+    wav_long = seeded_audio(96, 2, TED_SEQ_SECONDS)
     seq_len, num_div = window_plan(wav_long.shape[1], SR, fps, window, seed_len)
+    seq_gen = Generator(b.model, *make_diffusion("linear", 1000, TED_SEQ_RESPACING),
+                        device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    seq = gen.generate_sequence(wav_long, SR, d_pose, fps, window, seed_len,
-                                generator=draw,
-                                smooth_trans=bool(gen_cfg.smooth_transition),
-                                trans_factor=gen_cfg.trans_factor)
+    seq = seq_gen.generate_sequence(wav_long, SR, d_pose, fps, window, seed_len,
+                                    generator=draw,
+                                    smooth_trans=bool(gen_cfg.smooth_transition),
+                                    trans_factor=gen_cfg.trans_factor)
     seq_ms = (time.perf_counter() - t0) * 1e3
-    log(f"[tedexp] generate_sequence 2 clips x 10 s, seed {seed_len}, smooth "
+    log(f"[tedexp] generate_sequence 2 clips x {TED_SEQ_SECONDS:g} s, seed "
+        f"{seed_len}, smooth "
         f"transition, trans_factor {gen_cfg.trans_factor}: {seq_ms:.1f} ms for "
-        f"{num_div} windows of 1000 steps, output {seq.shape}, "
-        f"last_sample_path={gen.last_sample_path} [{smi}]")
+        f"{num_div} windows of {seq_gen.num_steps} steps ({TED_SEQ_RESPACING}: "
+        f"respaced, not comparable with a time of 1000-step windows), "
+        f"output {seq.shape}, last_sample_path={seq_gen.last_sample_path} "
+        f"[{smi}]")
     if (seq.shape != (2, seq_len, d_pose) or not np.isfinite(seq).all()
-            or gen.last_sample_path != "scan"):
+            or seq_gen.last_sample_path != "scan"):
         raise AssertionError("tedexp generate_sequence failed")
     summary["sequence_ms"] = seq_ms
 
@@ -1969,8 +2065,8 @@ def _free_port() -> int:
 
 def multi_paths(smi, dev, check) -> dict:
     """Phase 13: data-parallel training and sharded serving on one card.
-    Returns the fused launches of its main paths by variant; raises on any
-    failed check."""
+    Returns the fused launches of its main paths by row of the kernels
+    line (``counted``); raises on any failed check."""
     import tempfile
 
     import torch.distributed as dist
@@ -2177,7 +2273,7 @@ def multi_paths(smi, dev, check) -> dict:
                 fs._fused_ddim_cuda = lambda *a, **k: real_cuda(*a, **k, cluster=forced)
             try:
                 for name, gen in (("sharded", sharded), ("whole", whole)):
-                    fs.launches = 0
+                    reset_counts()
                     t0 = time.perf_counter()
                     out = gen.generate_sample(
                         wav, D_POSE, WINDOW, sample_alg=alg,
@@ -2185,7 +2281,7 @@ def multi_paths(smi, dev, check) -> dict:
                     torch.cuda.synchronize()
                     results[name, forced] = (out, fs.launches, fs.last_cluster,
                                              (time.perf_counter() - t0) * 1e3)
-                    launches[variant] = launches.get(variant, 0) + fs.launches
+                    counted(variant, launches)
             finally:
                 fs._fused_ddim_cuda = real_cuda
         r = rel(results["sharded", None][0], results["whole", None][0])
@@ -2202,12 +2298,12 @@ def multi_paths(smi, dev, check) -> dict:
             raise AssertionError(f"the sharded {mt} {alg} sample is off the "
                                  "unsharded one or did not launch twice")
     sharded, whole = serve["s2g_v2"]
-    fs.launches = 0
+    reset_counts()
     three = sharded.generate_sample(wav[:3], D_POSE, WINDOW,
                                     generator=torch.Generator(device=dev).manual_seed(97))
     torch.cuda.synchronize()
     n3 = fs.launches
-    launches["ddim"] += n3
+    counted("ddim", launches)
     log(f"[multi-serve] batch 3 does not divide over 2 shards: {n3} launch "
         f"(unsharded on the first device), output {tuple(three.shape)}")
     if n3 != 1 or not torch.isfinite(three).all():
@@ -2219,17 +2315,18 @@ def multi_paths(smi, dev, check) -> dict:
               for _ in range(7)]
     kw = dict(noise_fn=lambda b0, d: noises[d], trans_factor=TRANS_FACTOR,
               mesh=mesh)
-    fs.launches = 0
+    reset_counts()
     offline = whole.generate_sequence(wav_long, SR, D_POSE, FPS, WINDOW, SEED_LEN, **kw)
     n_off = fs.launches
-    fs.launches = 0
+    counted("ddim", launches)
+    reset_counts()
     stream = whole.stream(SR, D_POSE, FPS, WINDOW, SEED_LEN, **kw)
     chunks = []
     for i in range(0, wav_long.shape[1], SR // 2):
         chunks.extend(stream.push(wav_long[:, i:i + SR // 2]))
     chunks.extend(stream.flush())
     n_str = fs.launches
-    launches["ddim"] += n_off + n_str
+    counted("ddim", launches)
     streamed = np.concatenate(chunks, axis=1)
     same = streamed.shape == offline.shape and np.array_equal(streamed, offline)
     log(f"[multi-serve] stream(mesh=) against generate_sequence(mesh=), 2 x 10 s: "
@@ -2254,6 +2351,8 @@ def multi_paths(smi, dev, check) -> dict:
         for k in ("x_T", "mem_rows"):
             shard[k] = args[k][base:base + half].contiguous()
         check("stochastic", f"batch {half} DDPM, clip_base {base}", shard)
+    # a comparison: the launch counts are left as they were found
+    counts = fs.launches, dict(fs.launches_by_dtype)
     with torch.no_grad():
         one = dict(args, tmap=args["tmap"][:1], num_steps=1, coefs=torch.tensor(
             [[0.0, 0.0, 0.0, 0.0, 1.0]], device=dev), clip_base=half,
@@ -2261,6 +2360,7 @@ def multi_paths(smi, dev, check) -> dict:
         z = fs.fused_ddim_sample(**one)
         whole_z = fs.fused_noise(torch.tensor([4321], device=dev), 0, MULTI_BATCH,
                                  WINDOW, z.shape[2], dev)
+    fs.launches, fs.launches_by_dtype = counts
     z_same = torch.equal(z, whole_z[half:])
     log(f"[multi-serve] the kernel's z at clip_base {half} equals the whole "
         f"batch's z of clips {half}..{MULTI_BATCH - 1} bit for bit: {z_same}")
@@ -2405,8 +2505,8 @@ def one_process_steps(bundle, state, cfg, batch, t, noise, mel, dev) -> dict:
 
 def tp_paths(smi, dev, check) -> dict:
     """Phase 14: tensor parallelism (``parallel/tp.py``) on one card.
-    Returns the fused launches of its serving path by variant; raises on
-    any failed check."""
+    Returns the fused launches of its serving path by row of the kernels
+    line (``counted``); raises on any failed check."""
     import tempfile
 
     from gesture_diffusion_torch.diffusion import make_diffusion
@@ -2487,13 +2587,14 @@ def tp_paths(smi, dev, check) -> dict:
     wav = seeded_audio(112, 8, WINDOW / FPS)
     noise50 = torch.randn(8, WINDOW, D_POSE, generator=torch.Generator(device=dev)
                           .manual_seed(113), device=dev)
-    samples, launches = [], 0
+    samples, launches, rows = [], 0, {}
     for weights in (outs[4]["state"], ref[torch.float32][2]):
         gen.update_variables({k: v.to(dev) for k, v in weights.items()})
-        fs.launches = 0
+        reset_counts()
         samples.append(gen.generate_sample(wav, D_POSE, WINDOW, noise=noise50))
         torch.cuda.synchronize()
         launches += fs.launches
+        counted("ddim", rows)
     r = rel(samples[0], samples[1])
     log(f"[tp] the 2x2 ranks' checkpoint (full_state_dict: whole tensors under "
         f"the reference's names) in a plain Generator, ddim50 batch 8 through "
@@ -2503,7 +2604,7 @@ def tp_paths(smi, dev, check) -> dict:
         raise AssertionError("the tensor-parallel checkpoint does not serve as "
                              "the one-process one")
     tmp.cleanup()
-    return {"ddim": launches}
+    return rows
 
 
 # -- phase 15: the whole-model compute dtype (Train.dtype) -------------------------
@@ -2534,7 +2635,8 @@ def _norm_ratio(grads, ref, names) -> float:
 
 def dtype_paths(smi, dev, check) -> dict:
     """Phase 15: ``Train.dtype: "bfloat16"`` on the card.  Returns the fused
-    launches of its serving path by variant; raises on any failed check."""
+    launches of its serving path by row of the kernels line (``counted``);
+    raises on any failed check."""
     import tempfile
 
     from gesture_diffusion_torch.diffusion import make_diffusion
@@ -2651,10 +2753,10 @@ def dtype_paths(smi, dev, check) -> dict:
                           .manual_seed(125), device=dev)
     fused = Generator(trained.model, s50, t50, device=dev)
     scan = Generator(trained.model, s50, t50, use_fused=False, device=dev)
-    fs.launches = 0
+    reset_counts()
     a = fused.generate_sample(wav, D_POSE, WINDOW, noise=noise50)
     torch.cuda.synchronize()
-    launches = fs.launches
+    launches, rows = fs.launches, counted("ddim")
     b_ = scan.generate_sample(wav, D_POSE, WINDOW, noise=noise50)
     log(f"[dtype-serve] the Train.dtype bf16 model after {2 * TRAIN_BATCHES} "
         f"steps, ddim50 batch 8: fused kernel ({launches} launch, f32 weights "
@@ -2693,7 +2795,7 @@ def dtype_paths(smi, dev, check) -> dict:
         f"step (ddim50 generate_sample over 50, after a first call): "
         + "; ".join(row) + f" [{smi}]")
     tmp.cleanup()
-    return {"ddim": launches}
+    return rows
 
 
 # -- phase 16: a JAX checkpoint served by the port ---------------------------------
@@ -2704,8 +2806,8 @@ def jax_chkpt_paths(smi, dev, check) -> dict:
     """Phase 16: the committed JAX checkpoint (``tests/fixtures/jax_chkpt``,
     written by the JAX package's ``save_checkpoint``) through the port's
     eval-time and gen phases on the card and against the JAX sample
-    recorded beside it.  Returns the fused launches by variant; raises on
-    any failed check."""
+    recorded beside it.  Returns the fused launches by row of the kernels
+    line (``counted``); raises on any failed check."""
     import contextlib
     import io
     import lzma
@@ -2745,15 +2847,17 @@ def jax_chkpt_paths(smi, dev, check) -> dict:
     cfg_path = os.path.join(root, "config.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f)
-    launches, times, printed = {}, {}, {}
+    launches, times, printed, rows = {}, {}, {}, {}
     for phase in ("prep", "data", "eval-time", "gen"):
         out = io.StringIO()
-        fs.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             cli.main(["--phase", phase, "--config", cfg_path])
         torch.cuda.synchronize()
         times[phase], launches[phase] = time.perf_counter() - t0, fs.launches
+        if phase in ("eval-time", "gen"):
+            counted("ddim", rows)
         printed[phase] = out.getvalue()
     samples = os.path.join(run, "results", "samples")
     outs = [pickle.load(open(os.path.join(samples, f), "rb"))["out"]
@@ -2796,11 +2900,68 @@ def jax_chkpt_paths(smi, dev, check) -> dict:
     if r > JAX_CHKPT_BAR:
         raise AssertionError("the port serves the JAX checkpoint off JAX's sample")
     tmp.cleanup()
-    return {"ddim": launches["eval-time"] + launches["gen"]}
+    return rows
 
 
 LATER_PHASES = {"multi": multi_paths, "tp": tp_paths, "dtype": dtype_paths,
                 "jax-chkpt": jax_chkpt_paths}
+
+
+def bits_phase(smi, dev, gen, ref_so: str, batch_inputs) -> dict:
+    """Phase 4b: the package's bf16 instantiation against the bf16-only
+    source (``BF16_ONLY``, built in phase 1) on the same inputs, bit for
+    bit: the flagship's weights through ``gen`` (bf16 at every batch),
+    ddim50 DDIM with the identity blend and DDPM with the x0 blend, batches
+    1 and 64, at the planned and at every forced cluster size.  Its
+    launches are comparisons: it leaves the launch counts as it found
+    them.  Raises unless every output is bit-equal."""
+    import ctypes
+    import re
+
+    from gesture_diffusion_torch.diffusion import make_diffusion
+    from gesture_diffusion_torch.generation import Generator
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from fused_ddim_compare import _Interface
+
+    with open(BF16_ONLY) as f:
+        n_dims = int(re.search(r"#define N_DIMS (\d+)", f.read()).group(1))
+    own = fs._library()
+    ref = _Interface(fs.bind_library(ctypes.CDLL(ref_so)), n_dims)
+    s50, t50 = make_diffusion("linear", 1000, "ddim50")
+    g = Generator(gen.model, s50, t50, fused_dtype=torch.bfloat16, device=dev)
+    counts = fs.launches, dict(fs.launches_by_dtype)
+    equal = {}
+    try:
+        for n in (1, 64):
+            for alg, blend in (("ddim", False), ("ddpm", True)):
+                wav, noise, ip, im, ramp = batch_inputs(n, 60 + n, blend)
+                with torch.no_grad():
+                    args = g.fused_args(wav, D_POSE, WINDOW, noise, ip, im, ramp,
+                                        sample_alg=alg,
+                                        seed=torch.tensor([2468 + n], device=dev))
+                    for c in (None,) + fs.CLUSTER_SIZES:
+                        outs = []
+                        for lib in (ref, own):
+                            fs._LIB = lib
+                            outs.append(fs._fused_ddim_cuda(**args, cluster=c))
+                        torch.cuda.synchronize()
+                        equal[f"{alg} batch {n} C {c or 'planned'}"] = \
+                            torch.equal(*outs)
+    finally:
+        fs._LIB = own
+        fs.launches, fs.launches_by_dtype = counts[0], counts[1]
+    log(f"[kernel-bits] bf16 instantiation against "
+        f"{os.path.relpath(BF16_ONLY, REPO)} (ddim50; DDIM identity, DDPM "
+        f"x0-blend; batches 1, 64; planned and forced C): bit-equal in "
+        f"{sum(equal.values())} of {len(equal)}"
+        + ("" if all(equal.values()) else
+           f"; differ: {[k for k, v in equal.items() if not v]}") + f" [{smi}]")
+    if not all(equal.values()):
+        raise AssertionError("the bf16 instantiation is not bit-equal to the "
+                             "bf16-only source")
+    return equal
 
 
 def main(argv=None) -> int:
@@ -2849,33 +3010,48 @@ def main(argv=None) -> int:
         return 0
 
     # -- phase 1: build ------------------------------------------------------
+    # the package's source (both instantiations) and, beside it, the
+    # bf16-only source that phase 4b holds the bf16 instantiation to; one
+    # nvcc each, started together
     t0 = time.perf_counter()
-    fs._library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ref_build = pool.submit(
+            kernel_build._build, "fused_ddim_bf16_only", pathlib.Path(BF16_ONLY),
+            kernel_build.BUILD_DIR, kernel_build._nvcc, kernel_build.NVCC_FLAGS)
+        fs._library()
+        ref_so = str(ref_build.result())
     path, secs, ptxas = kernel_build.BUILD_INFO["fused_ddim"]
     log(f"[build] fused_ddim: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {secs:.1f} s) -> {os.path.relpath(path, REPO)}")
+        f"(nvcc {secs:.1f} s) -> {os.path.relpath(path, REPO)}; "
+        f"{os.path.relpath(BF16_ONLY, REPO)} built beside it (nvcc "
+        f"{kernel_build.BUILD_INFO['fused_ddim_bf16_only'][1]:.1f} s) -> "
+        f"{os.path.relpath(ref_so, REPO)}")
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
-    for t in (8, WINDOW, 49, 64):
-        nbytes, fc, half = fs.smem_plan(t, 256, 128, 1024)
-        if nbytes != fs._library().fused_ddim_smem_bytes(t, 256, 128, fc,
-                                                         int(half)):
-            raise AssertionError("Python and CUDA shared-memory plans disagree")
-    if fs.scratch_elems(92, 256, 4) != \
-            fs._library().fused_ddim_scratch_elems(92, 256, 4):
-        raise AssertionError("Python and CUDA scratch sizes disagree")
-    nbytes = fs.smem_plan(WINDOW, 256, 128, 1024)[0]
-    occupancy = {c: fs.max_clusters(fs._library(), c, nbytes, dev)
-                 for c in fs.CLUSTER_SIZES}
-    plans = {n: fs.cluster_plan(n, 8, occupancy.__getitem__)
-             for n in (1, 3, 16, 17, 33, 64, 67, 128)}
-    log(f"[build] clusters of C blocks ({nbytes} bytes each) the card runs at "
-        f"once: {occupancy}; planned C by batch: {plans}")
-    for n, c in plans.items():
-        if fs._library().fused_ddim_cluster_size(n, 8, nbytes) != c:
-            raise AssertionError(f"Python and CUDA cluster plans disagree at "
-                                 f"batch {n}")
+    for f32 in (False, True):
+        for t in (8, WINDOW, 49, 64):
+            nbytes, fc, half = fs.smem_plan(t, 256, 128, 1024, f32)
+            if nbytes != fs._library().fused_ddim_smem_bytes(
+                    t, 256, 128, fc, int(half), int(f32)):
+                raise AssertionError("Python and CUDA shared-memory plans "
+                                     "disagree")
+        if fs.scratch_elems(92, 256, 4, WINDOW if f32 else 0) != \
+                fs._library().fused_ddim_scratch_elems(92, 256, 4,
+                                                       WINDOW if f32 else 0):
+            raise AssertionError("Python and CUDA scratch sizes disagree")
+        nbytes = fs.smem_plan(WINDOW, 256, 128, 1024, f32)[0]
+        occupancy = {c: fs.max_clusters(fs._library(), c, nbytes, dev, f32)
+                     for c in fs.CLUSTER_SIZES}
+        plans = {n: fs.cluster_plan(n, 8, occupancy.__getitem__)
+                 for n in (1, 3, 16, 17, 33, 64, 67, 128)}
+        log(f"[build] {'float32' if f32 else 'bf16'} instantiation: clusters "
+            f"of C blocks ({nbytes} bytes each) the card runs at once: "
+            f"{occupancy}; planned C by batch: {plans}")
+        for n, c in plans.items():
+            if fs._library().fused_ddim_cluster_size(n, 8, nbytes, int(f32)) != c:
+                raise AssertionError(f"Python and CUDA cluster plans disagree "
+                                     f"at batch {n}")
 
     # comparisons in true float32 (no TF32 in matmuls or cuDNN convolutions)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2919,27 +3095,20 @@ def main(argv=None) -> int:
                     trans_factor=TRANS_FACTOR, pose_seed_len=SEED_LEN)
 
     # -- phase 3: kernel against its plain version (and the f32 scan) --------
+    # the bf16 instantiation through Generators that compute in bf16 at
+    # every batch; the float32 one on the same bf16 packs and on f32 packs
     s50, t50 = make_diffusion("linear", 1000, "ddim50")
-    g50 = {mt: Generator(b.model, s50, t50, use_fused=True, device=dev)
+    g50 = {mt: Generator(b.model, s50, t50, use_fused=True,
+                         fused_dtype=torch.bfloat16, device=dev)
            for mt, b in bundles.items()}
+    g50w = {mt: Generator(b.model, s50, t50, use_fused=True,
+                          fused_dtype=torch.float32, device=dev)
+            for mt, b in bundles.items()}
     scan50 = Generator(model, s50, t50, use_fused=False, device=dev)
     worst = {}               # variant -> [worst relative, worst absolute]
     worst_c = {}             # cluster size -> worst relative
 
     check = make_check(worst, worst_c)
-
-    for n in (1, 3, 64):
-        for blend in (False, True):
-            wav, noise, ip, im, ramp = batch_inputs(n, 10 + n, blend)
-            with torch.no_grad():
-                args = g50["s2g_v2"].fused_args(wav, D_POSE, WINDOW, noise, ip,
-                                                im, ramp)
-            scan = scan50.generate_sample(wav, D_POSE, WINDOW, noise=noise,
-                                          inpaint_poses=ip, inpaint_masks=im,
-                                          trans_factor=TRANS_FACTOR if blend else None,
-                                          pose_seed_len=SEED_LEN)
-            check("ddim", f"batch {n:2d} {'x0-blend' if blend else 'identity'}",
-                  args, scan)
 
     # the further variants: (variant, label, model type, blend, DDPM,
     # hand-made x_add)
@@ -2950,45 +3119,105 @@ def main(argv=None) -> int:
               False, False),
              ("x_add", "DDPM + x0-blend + x_add, inpaint type (n_mem 92)",
               "inpaint", True, True, False))
-    for variant, label, mt, blend, ddpm, hand_xadd in cases:
-        for n in (1, 3, 64):
-            wav, noise, ip, im, ramp = batch_inputs(n, 40 + n, blend)
-            with torch.no_grad():
-                args = g50[mt].fused_args(
-                    wav, D_POSE, WINDOW, noise, ip, im, ramp,
-                    sample_alg="ddpm" if ddpm else "ddim",
-                    seed=torch.tensor([1234 + n], device=dev))
-            if hand_xadd:
-                xa = torch.zeros_like(args["x_T"])
-                xa[..., :D_POSE] = 0.3 * torch.randn(
-                    n, WINDOW, D_POSE, generator=gen_seed, device=dev)
-                args["x_add"] = xa
-            if mt != "s2g_v2" and args["mem_rows"].shape[1] != 92:
-                raise AssertionError(f"{mt} memory has "
-                                     f"{args['mem_rows'].shape[1]} rows, not 92")
-            if (args["x_add"] is not None) != (hand_xadd or mt == "inpaint"):
-                raise AssertionError("x_add is not where it should be")
-            check(variant, f"batch {n:2d} {label}", args)
-    worst_all = max(w[0] for w in worst.values())
+
+    def variant_checks(gmap, compute, batches):
+        """Every variant at every batch of ``batches`` through ``check``,
+        with ``compute`` as the compute dtype (bf16 also against the f32
+        scan sampler)."""
+        for n in batches:
+            for blend in (False, True):
+                wav, noise, ip, im, ramp = batch_inputs(n, 10 + n, blend)
+                with torch.no_grad():
+                    args = gmap["s2g_v2"].fused_args(wav, D_POSE, WINDOW, noise,
+                                                     ip, im, ramp)
+                args["compute_dtype"] = compute
+                scan = None
+                if compute == torch.bfloat16:
+                    scan = scan50.generate_sample(
+                        wav, D_POSE, WINDOW, noise=noise, inpaint_poses=ip,
+                        inpaint_masks=im,
+                        trans_factor=TRANS_FACTOR if blend else None,
+                        pose_seed_len=SEED_LEN)
+                check("ddim", f"batch {n:2d} {'x0-blend' if blend else 'identity'}",
+                      args, scan)
+        for variant, label, mt, blend, ddpm, hand_xadd in cases:
+            for n in batches:
+                wav, noise, ip, im, ramp = batch_inputs(n, 40 + n, blend)
+                with torch.no_grad():
+                    args = gmap[mt].fused_args(
+                        wav, D_POSE, WINDOW, noise, ip, im, ramp,
+                        sample_alg="ddpm" if ddpm else "ddim",
+                        seed=torch.tensor([1234 + n], device=dev))
+                args["compute_dtype"] = compute
+                if hand_xadd:
+                    xa = torch.zeros_like(args["x_T"])
+                    xa[..., :D_POSE] = 0.3 * torch.randn(
+                        n, WINDOW, D_POSE, generator=gen_seed, device=dev)
+                    args["x_add"] = xa
+                if mt != "s2g_v2" and args["mem_rows"].shape[1] != 92:
+                    raise AssertionError(f"{mt} memory has "
+                                         f"{args['mem_rows'].shape[1]} rows, not 92")
+                if (args["x_add"] is not None) != (hand_xadd or mt == "inpaint"):
+                    raise AssertionError("x_add is not where it should be")
+                check(variant, f"batch {n:2d} {label}", args)
+
+    variant_checks(g50, torch.bfloat16, (1, 3, 64))
+    bf16_worst = {k: w for k, w in worst.items()}
+    worst_all = max(w[0] for w in bf16_worst.values())
     log(f"[kernel-vs-plain] bar {KERNEL_BAR:.0e} (max|d|/max|ref|), worst "
         f"{worst_all:.3e}; by variant: "
-        + ", ".join(f"{k} {w[0]:.3e}" for k, w in worst.items())
+        + ", ".join(f"{k} {w[0]:.3e}" for k, w in bf16_worst.items())
         + "; by forced cluster size: "
         + ", ".join(f"C={c} {w:.3e}" for c, w in worst_c.items()))
 
-    # the kernel's noise: one step with coefficients (0, 0, 0, 0, 1) gives z
+    # the float32 instantiation: its bar from the plain version's own
+    # distance between the card and the CPU (float32, TF32 off), then every
+    # variant on a bf16 pack (the JAX default at one or two clips a device)
+    # and on an f32 pack (fused_dtype=float32)
+    wav, noise, _, _, _ = batch_inputs(3, 13, False)
+    with torch.no_grad():
+        args = g50["s2g_v2"].fused_args(wav, D_POSE, WINDOW, noise)
+        args["compute_dtype"] = torch.float32
+        on_card = fs.fused_ddim_sample_plain(**args)
+        cpu_args = {k: (v.cpu() if torch.is_tensor(v) else v)
+                    for k, v in args.items()}
+        cpu_args["packed"] = fs.PackedDenoiser(*(t.cpu() for t in args["packed"]))
+        on_cpu = fs.fused_ddim_sample_plain(**cpu_args)
+    plain_gap = rel(on_card.cpu(), on_cpu)
+    f32_bar[0] = 2 * plain_gap if plain_gap > F32_FLOOR else F32_BAR
+    log(f"[kernel-vs-plain] float32 compute: the plain version on the card "
+        f"against the CPU (batch 3, ddim50, bf16 weights, TF32 off) "
+        f"max|d|/max|ref| {plain_gap:.3e}; the bar {f32_bar[0]:.3e} ({F32_BAR:.0e}, "
+        f"or twice that distance where it is over {F32_FLOOR:.0e})")
+    worst_c.clear()
+    variant_checks(g50, torch.float32, (1, 3, 64))
+    variant_checks(g50w, torch.float32, (1, 3, 64))
+    log(f"[kernel-vs-plain] float32 compute, bar {f32_bar[0]:.3e}: worst on "
+        f"bf16 weights {worst['f32'][0]:.3e}, on f32 weights "
+        f"{worst['f32w'][0]:.3e}; by forced cluster size: "
+        + ", ".join(f"C={c} {w:.3e}" for c, w in worst_c.items()))
+
+    # the kernel's noise: one step with coefficients (0, 0, 0, 0, 1) gives z,
+    # in each instantiation (bf16; float32 on bf16 and on f32 weights)
     with torch.no_grad():
         wav, noise, _, _, _ = batch_inputs(64, 77, False)
-        args = g50["s2g_v2"].fused_args(wav, D_POSE, WINDOW, noise,
-                                        sample_alg="ddpm", seed=(9 << 32) | 4242)
-        args.update(tmap=args["tmap"][:1], num_steps=1, coefs=torch.tensor(
-            [[0.0, 0.0, 0.0, 0.0, 1.0]], device=dev))
-        z = fs.fused_ddim_sample(**args)
+        zc = {}
+        for tag, g, compute in (("bf16", g50, torch.bfloat16),
+                                ("f32", g50, torch.float32),
+                                ("f32w", g50w, torch.float32)):
+            args = g["s2g_v2"].fused_args(wav, D_POSE, WINDOW, noise,
+                                          sample_alg="ddpm",
+                                          seed=(9 << 32) | 4242)
+            args.update(tmap=args["tmap"][:1], num_steps=1, coefs=torch.tensor(
+                [[0.0, 0.0, 0.0, 0.0, 1.0]], device=dev), compute_dtype=compute)
+            if tag == "bf16":
+                z = fs.fused_ddim_sample(**args)
+            for c in fs.CLUSTER_SIZES:
+                zc[tag, c] = fs._fused_ddim_cuda(**args, cluster=c)
         zp = fs.fused_noise((9 << 32) | 4242, 0, 64, WINDOW, z.shape[2], dev)
-        zc = {c: fs._fused_ddim_cuda(**args, cluster=c) for c in fs.CLUSTER_SIZES}
-    z_equal = {c: bool(torch.equal(v, zp)) for c, v in zc.items()}
-    log(f"[kernel-noise] z equals the plain version's bit for bit, by forced "
-        f"cluster size: {z_equal}")
+    z_equal = {k: bool(torch.equal(v, zp)) for k, v in zc.items()}
+    log(f"[kernel-noise] z equals the plain version's bit for bit, by "
+        f"instantiation and forced cluster size: {z_equal}")
     if not all(z_equal.values()):
         raise AssertionError("the kernel's noise depends on the cluster size "
                              "or differs from the plain version's")
@@ -3002,20 +3231,34 @@ def main(argv=None) -> int:
         raise AssertionError("the kernel's noise is not the plain version's N(0, 1)")
 
     # -- phase 4: device time of the kernel and of the plain version ---------
+    # the bf16 rows through Generators that compute in bf16 at every batch;
+    # the float32 rows on the flagship's bf16 pack (compute set to float32)
+    # and on its f32 pack (fused_dtype=float32)
     gens = {mt: Generator(b.model, b.eval_schedule, b.eval_timestep_map,
                           device=dev) for mt, b in bundles.items()}
     gen = gens["s2g_v2"]
+    gens_bf16 = {mt: Generator(b.model, b.eval_schedule, b.eval_timestep_map,
+                               fused_dtype=torch.bfloat16, device=dev)
+                 for mt, b in bundles.items()}
+    gen_f32w = Generator(model, bundle.eval_schedule, bundle.eval_timestep_map,
+                         fused_dtype=torch.float32, device=dev)
     timings = {}
-    for variant, mt, blend, alg in (("ddim", "s2g_v2", False, "ddim"),
-                                    ("long", "default", False, "ddim"),
-                                    ("stochastic", "s2g_v2", False, "ddpm"),
-                                    ("x_add", "inpaint", True, "ddpm")):
+    for variant, g, blend, alg, compute in (
+            ("ddim", gens_bf16["s2g_v2"], False, "ddim", torch.bfloat16),
+            ("long", gens_bf16["default"], False, "ddim", torch.bfloat16),
+            ("stochastic", gens_bf16["s2g_v2"], False, "ddpm", torch.bfloat16),
+            ("x_add", gens_bf16["inpaint"], True, "ddpm", torch.bfloat16),
+            ("f32", gens_bf16["s2g_v2"], False, "ddim", torch.float32),
+            ("f32w", gen_f32w, False, "ddim", torch.float32)):
+        mt = g.model.cfg.model_type
         for n in (1, 64):
             wav, noise, ip, im, ramp = batch_inputs(n, 20 + n, blend)
             with torch.no_grad():
-                args = gens[mt].fused_args(wav, D_POSE, WINDOW, noise, ip, im,
-                                           ramp, sample_alg=alg, seed=5)
-                ms = cuda_ms(lambda: fs.fused_ddim_sample(**args), reps=2)
+                args = g.fused_args(wav, D_POSE, WINDOW, noise, ip, im,
+                                    ramp, sample_alg=alg, seed=5)
+                args["compute_dtype"] = compute
+                ms = cuda_ms(lambda: fs.fused_ddim_sample(**args),
+                             reps=2 if compute == torch.bfloat16 else 1)
                 cluster = fs.last_cluster
                 # the plain version's code is warm from phase 3
                 plain = cuda_ms(lambda: fs.fused_ddim_sample_plain(**args),
@@ -3023,46 +3266,71 @@ def main(argv=None) -> int:
             b, by, every = bound_ms(args)
             timings[variant, n] = dict(ms=ms, plain_ms=plain, bound_ms=b,
                                        bound_by=by, cluster=cluster)
+            weights = str(args["packed"].w_embx.dtype).replace("torch.", "")
             log(f"[kernel-time] {mt} {alg}{' x0-blend' if blend else ''}, n_mem "
-                f"{args['mem_rows'].shape[1]}, batch {n:2d}, 1000 steps: kernel "
+                f"{args['mem_rows'].shape[1]}, compute "
+                f"{str(compute).replace('torch.', '')} on {weights} weights, "
+                f"batch {n:2d}, 1000 steps: kernel "
                 f"{ms:.3f} ms (clusters of {cluster}), plain {plain:.3f} ms, bound {b:.3f} ms ({by}; "
                 f"{every:.3f} ms with the memory K/V counted on every step) "
                 f"[{smi}]")
 
+    # -- phase 4b: the bf16 instantiation against the bf16-only source -------
+    bits_phase(smi, dev, gens_bf16["s2g_v2"], ref_so, batch_inputs)
+
     # -- phase 5: the main paths ---------------------------------------------
+    # launches by row of the kernels line (``counted``): each path's, its
+    # counts set to 0 just before it (comparisons leave them as they were)
     launches = {}
     used = {}                # (variant, batch) -> cluster size of the launch
+    rows = ("ddim", "long", "stochastic", "x_add", "f32", "f32w")
 
-    def sample_path(variant, mt, alg, batches, blend):
-        """generate_sample at 1000 steps: 1 warm-up, 3 timed, 1 checked."""
-        g = gens[mt]
-        fs.launches = 0
+    def instantiations() -> str:
+        """The instantiations launched since the counts were reset."""
+        return ", ".join(
+            f"{str(c).replace('torch.', '')} compute on "
+            f"{str(w).replace('torch.', '')} weights x{k}"
+            for (c, w), k in fs.launches_by_dtype.items())
+
+    def gate(where: str):
+        missing = [r for r in rows if not launches.get(r)]
+        log(f"[launches] {where}, by row of the kernels line (the bf16 "
+            f"instantiation by variant; f32 and f32w the float32 one on bf16 "
+            f"and on f32 weights): {launches}")
+        if missing:
+            raise AssertionError(f"{where} launched no kernel of the rows "
+                                 f"{missing}")
+
+    def sample_path(variant, mt, alg, batches, blend, g=None, tag=""):
+        """generate_sample at 1000 steps: 1 warm-up, 3 timed, 1 checked;
+        through ``gens[mt]`` (the default policy) unless ``g`` is given."""
+        g = gens[mt] if g is None else g
         for n in batches:
             wav = seeded_audio(30 + n, n, WINDOW / FPS)
             kw = seed_kw(n) if blend else {}
-            before = fs.launches
 
             def call():
                 return g.generate_sample(wav, D_POSE, WINDOW, generator=gen_seed,
                                          sample_alg=alg, **kw)
 
+            reset_counts()
             mean_ms, std_ms, _ = host_ms(call)
             out = call()
-            launched = fs.launches - before
+            launched = fs.launches
+            counted(variant, launches)
             used[variant, n] = fs.last_cluster
             ok = (g.last_sample_path == "fused"
                   and tuple(out.shape) == (n, WINDOW, D_POSE)
                   and bool(torch.isfinite(out).all()))
-            log(f"[generate_sample] {mt} {alg}{' x0-blend' if blend else ''}, "
-                f"batch {n:2d}, 1000 steps: {mean_ms:.1f} ms (std {std_ms:.1f}, "
-                f"{1e6 / mean_ms:.0f} steps/s), last_sample_path="
-                f"{g.last_sample_path}, kernel launches +{launched}, clusters "
-                f"of {fs.last_cluster} [{smi}]")
+            log(f"[generate_sample] {mt} {alg}{' x0-blend' if blend else ''}"
+                f"{tag}, batch {n:2d}, 1000 steps: {mean_ms:.1f} ms (std "
+                f"{std_ms:.1f}, {1e6 / mean_ms:.0f} steps/s), last_sample_path="
+                f"{g.last_sample_path}, kernel launches +{launched} "
+                f"({instantiations()}), clusters of {fs.last_cluster} [{smi}]")
             if not ok or launched != 5:
                 raise AssertionError(
                     f"generate_sample {mt} {alg} batch {n} did not run the fused "
                     f"kernel as expected (launches {launched})")
-        launches[variant] = launches.get(variant, 0) + fs.launches
 
     sample_path("ddim", "s2g_v2", "ddim", (1, 64), False)
     log(f"[cluster] blocks per clip on the main path: batch 1 "
@@ -3070,8 +3338,14 @@ def main(argv=None) -> int:
     if used["ddim", 1] < 2 or used["ddim", 64] < 2:
         raise AssertionError("the main path did not launch clusters of more "
                              "than one block at batches 1 and 64")
+    # batch 1 with the compute dtype set: bf16 (the bf16 instantiation) and
+    # float32 (the float32 one on f32 weights), beside the default above
+    sample_path("ddim", "s2g_v2", "ddim", (1,), False, gens_bf16["s2g_v2"],
+                " fused_dtype=bfloat16")
+    sample_path("ddim", "s2g_v2", "ddim", (1,), False, gen_f32w,
+                " fused_dtype=float32")
 
-    fs.launches = 0
+    reset_counts()
     wav_long = seeded_audio(50, 2, 10.0)
     init = 0.5 * torch.randn(2, SEED_LEN, D_POSE, generator=gen_seed,
                              device=dev).cpu().numpy()
@@ -3081,28 +3355,30 @@ def main(argv=None) -> int:
                                 init_poses=init, smooth_trans=False)
     seq_s = time.perf_counter() - t0
     log(f"[generate_sequence] 2 clips x 10 s: {seq_s * 1e3:.1f} ms, output "
-        f"{seq.shape}, kernel launches +{fs.launches} (x0-blend branch) [{smi}]")
+        f"{seq.shape}, kernel launches +{fs.launches} ({instantiations()}; "
+        f"x0-blend branch) [{smi}]")
     if seq.shape != (2, 200, D_POSE) or not np.isfinite(seq).all() \
             or fs.launches != 7:
         raise AssertionError("generate_sequence did not give 7 fused windows of "
                              "finite poses")
-    launches["ddim"] += fs.launches
+    counted("ddim", launches)
 
     sample_path("long", "default", "ddim", (1, 64), False)
     sample_path("x_add", "inpaint", "ddpm", (1, 64), True)
-    sample_path("stochastic", "s2g_v2", "ddpm", (1,), False)
+    sample_path("stochastic", "s2g_v2", "ddpm", (1, 64), False)
 
     # streaming: the same windows as generate_sequence, pushed in 0.5 s chunks
     noises = [torch.randn(2, WINDOW, D_POSE, generator=gen_seed, device=dev)
               for _ in range(7)]
     kw = dict(noise_fn=lambda b0, d: noises[d], trans_factor=TRANS_FACTOR,
               init_poses=init)
-    fs.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     offline = gen.generate_sequence(wav_long, SR, D_POSE, FPS, WINDOW, SEED_LEN,
                                     **kw)
     offline_s, offline_launches = time.perf_counter() - t0, fs.launches
-    fs.launches = 0
+    counted("ddim", launches)
+    reset_counts()
     t0 = time.perf_counter()
     stream = gen.stream(SR, D_POSE, FPS, WINDOW, SEED_LEN, max_in_flight=4, **kw)
     chunks, first_s = [], None
@@ -3113,6 +3389,7 @@ def main(argv=None) -> int:
         chunks.extend(got)
     chunks.extend(stream.flush())
     stream_s, stream_launches = time.perf_counter() - t0, fs.launches
+    counted("ddim", launches)
     streamed = np.concatenate(chunks, axis=1)
     same = streamed.shape == offline.shape and np.array_equal(streamed, offline)
     log(f"[stream] 2 clips x 10 s in 0.5 s chunks, max_in_flight 4: "
@@ -3124,12 +3401,11 @@ def main(argv=None) -> int:
     if not same or stream_launches != 7 or offline_launches != 7:
         raise AssertionError("the stream does not equal generate_sequence in 7 "
                              "fused windows")
-    launches["ddim"] += stream_launches + offline_launches
 
     # bpd: plain torch ops only, no hand-written kernel on this path
     poses = 0.5 * torch.randn(8, WINDOW, D_POSE, generator=gen_seed, device=dev)
     wav8 = seeded_audio(60, 8, WINDOW / FPS)
-    fs.launches = 0
+    reset_counts()
     bpd = {}
     for k in (1, 50):
         torch.cuda.synchronize()
@@ -3149,9 +3425,7 @@ def main(argv=None) -> int:
             or not torch.isfinite(bpd[1]["total_bpd"]).all() or fs.launches):
         raise AssertionError("eval_bpd depends on t_block or is not finite")
 
-    for variant, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"the main path launched no {variant} kernel")
+    gate("phase 5")
 
     # -- phase 6: training -----------------------------------------------------
     t0 = time.perf_counter()
@@ -3160,13 +3434,16 @@ def main(argv=None) -> int:
 
     # -- phase 7: the phase CLI ----------------------------------------------
     t0 = time.perf_counter()
-    launches["ddim"] += cli_paths(smi, check)
+    counts = cli_paths(smi, check)
+    for row, k in counts.items():
+        launches[row] += k
     log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 8: the corpus ends of a user's run -----------------------------
     t0 = time.perf_counter()
-    n_gen, generated = corpus_paths(smi, check)
-    launches["ddim"] += n_gen
+    counts, generated = corpus_paths(smi, check)
+    for row, k in counts.items():
+        launches[row] += k
     log(f"[corpus] phase took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 9: TED-Expressive; phase 10: the GCN and UNet decoders --------
@@ -3189,10 +3466,11 @@ def main(argv=None) -> int:
     # checkpoint; each main path's launches counted from 0 in its phase ----
     for name, paths in LATER_PHASES.items():
         t0 = time.perf_counter()
-        for variant, count in paths(smi, dev, check).items():
-            launches[variant] += count
+        for row, k in paths(smi, dev, check).items():
+            launches[row] += k
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
 
+    gate("the main paths of phases 5-16")
     what = {
         "ddim": ("fused_ddim_sample", f"{TPU_KERNEL}:705",
                  "s2g_v2, DDIM, T 40, n_mem 32"),
@@ -3202,6 +3480,10 @@ def main(argv=None) -> int:
                        "s2g_v2, DDPM, T 40, n_mem 32"),
         "x_add": ("fused_ddim_sample[x_add]", f"{TPU_KERNEL}:474",
                   "inpaint type, DDPM, x0 blend, x_add, T 40, n_mem 92"),
+        "f32": ("fused_ddim_sample[float32 compute, bf16 weights]",
+                f"{TPU_KERNEL}:578", "s2g_v2, DDIM, T 40, n_mem 32"),
+        "f32w": ("fused_ddim_sample[float32 compute, f32 weights]",
+                 f"{TPU_KERNEL}:578", "s2g_v2, DDIM, T 40, n_mem 32"),
     }
     kernels = [{
         "name": name,
@@ -3211,7 +3493,7 @@ def main(argv=None) -> int:
         "launches": launches[variant],
         "max_abs_err": worst[variant][1],
         "max_rel_err": worst[variant][0],
-        "bar": KERNEL_BAR,
+        "bar": f32_bar[0] if variant.startswith("f32") else KERNEL_BAR,
         **timings[variant, 64],
         "library_ms": None,
         "shape": f"batch 64, {shape}, 1000 steps",

@@ -42,10 +42,20 @@ Generator's do.
 Unlike the JAX Generator there is no silent fallback: for a oneway model
 with ``use_fused=True`` every batch goes through the kernel on the card
 (or its plain version for a CPU Generator), and a kernel that cannot run
-raises.  Compute-dtype policy: ``fused_dtype`` (default bfloat16) is both
-the packed weight dtype and the dtype the operands of every product are
-rounded to; accumulation, LayerNorm, softmax, the residual stream and the
-diffusion state stay float32 (see ``ops/fused_sampler.py``).
+raises.  Compute-dtype policy, the JAX Generator's: with ``fused_dtype``
+None (the default) the pack holds bfloat16 weights and each launch
+computes in float32 when the batch a device holds, ``n_local``, has
+gcd(n_local, 8) <= 2 (one or two clips: ``generate_sample`` at batch 1,
+the stream and ``generate_sequence`` of one or two clips, the CLI's
+eval-time), else in bfloat16; an explicit ``fused_dtype`` is both the
+weight dtype and the compute dtype of every launch.  ``n_local`` is the
+batch of one shard under a mesh that splits it, else the whole batch.
+The JAX Generator sends a batch with n_local > 2 and gcd(n_local, 8) < 4
+(3, 5, 6, 7, ...) to its float32 scan sampler; the port keeps it on the
+kernel, where the policy computes it in float32, the closer of the two
+dtypes to that scan.  Whatever the compute dtype, accumulation,
+LayerNorm, softmax, the residual stream and the diffusion state stay
+float32 (see ``ops/fused_sampler.py``).
 
 Randomness: initial noise and, for DDPM, the per-step noise come from the
 caller's ``torch.Generator``.  The fused DDPM path draws one seed from it
@@ -58,6 +68,7 @@ All layouts are (N, T, C).
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Optional, Tuple
 
@@ -153,7 +164,8 @@ class Generator:
         sampler.  Other decoders have no fused kernel and always take the
         scan sampler, whatever ``use_fused`` says.
         :param fused_dtype: weight and product-operand dtype of the fused
-        path (bfloat16 by default; the CUDA kernel takes only bfloat16).
+        path at every batch; None (the default): bfloat16 weights and the
+        compute dtype chosen per launch (module docstring).
         :param device: the card unless ``"cpu"`` is asked for.
         :param mesh: a data-axis mesh to split the fused path's batches
         over (module docstring); the model and every other path live on
@@ -175,7 +187,7 @@ class Generator:
         #: use_fused, for a model whose decoder the kernel fuses
         self.fused = self.use_fused and self.model.cfg.decoder_type == \
             "oneway_cross_attention"
-        self.fused_dtype = fused_dtype or torch.bfloat16
+        self.fused_dtype = fused_dtype
         #: which path produced the last ``generate_sample`` output:
         #: "fused" (the fused sampler) or "scan" (the module step loop)
         self.last_sample_path = None
@@ -234,13 +246,15 @@ class Generator:
 
     def fused_args(self, wavs, pose_dim, pose_window_len, noise, ip=None,
                    im=None, ramp=None, sample_alg: str = "ddim",
-                   seed=0) -> dict:
+                   seed=0, mesh: Optional[Mesh] = None) -> dict:
         """Keyword arguments of ``fused_ddim_sample`` for one window batch
         (device tensors in): the cached pack, padded x_T, memory rows, the
         blend tensors (None for the identity blend), the inpaint type's
-        ``x_add``, and the schedule of ``sample_alg``.  Only for a
-        Generator that samples through the fused kernel (``self.fused``):
-        the pack and the memory rows read the oneway decoder's weights."""
+        ``x_add``, the schedule of ``sample_alg``, and the compute dtype
+        the policy chooses for the batch a device holds when ``mesh`` (the
+        Generator's by default) splits the batch.  Only for a Generator
+        that samples through the fused kernel (``self.fused``): the pack
+        and the memory rows read the oneway decoder's weights."""
         if not self.fused:
             raise ValueError(
                 f"no fused kernel for this Generator (decoder "
@@ -251,11 +265,16 @@ class Generator:
         if self._packed is None or self._packed_key != key:
             self._packed = pack_oneway_denoiser(
                 self.model, pose_dim, pose_window_len,
-                weight_dtype=self.fused_dtype)
+                weight_dtype=self.fused_dtype or torch.bfloat16)
             self._packed_key = key
             self._replicas = {}
         n = noise.shape[0]
         dp_pad = self._packed.w_embx.shape[0]
+        mesh = self.mesh if mesh is None else mesh
+        shards = 1 if mesh is None else mesh.shape["data"]
+        n_local = n // shards if n % shards == 0 else n
+        compute_dtype = self.fused_dtype or (
+            torch.float32 if math.gcd(n_local, 8) <= 2 else torch.bfloat16)
 
         def embed(val, fill=0.0):
             out = torch.full((n, pose_window_len, dp_pad), fill,
@@ -277,13 +296,13 @@ class Generator:
                     mem_rows=self._memory_rows(wavs), tmap=self._tmap,
                     coefs=self._coefs[sample_alg], blend_a=blend_a,
                     blend_b=blend_b, n_layers=cfg.n_layers, heads=cfg.heads,
-                    num_steps=self.num_steps, compute_dtype=self.fused_dtype,
+                    num_steps=self.num_steps, compute_dtype=compute_dtype,
                     stochastic=sample_alg == "ddpm", seed=seed, x_add=x_add)
 
     def _fused_sample(self, wavs, pose_dim, pose_window_len, noise, ip, im,
                       ramp, sample_alg, seed, mesh=None):
         args = self.fused_args(wavs, pose_dim, pose_window_len, noise, ip, im,
-                               ramp, sample_alg, seed)
+                               ramp, sample_alg, seed, mesh)
         n = noise.shape[0]
         shards = 1 if mesh is None else mesh.shape["data"]
         if shards == 1 or n % shards:

@@ -28,9 +28,16 @@ Compute-dtype policy (both the kernel and ``fused_ddim_sample_plain``):
 the operands of every product (projections, Q.K^T, P.V) are rounded to
 ``compute_dtype`` and accumulated in float32; everything else stays
 float32 — the residual stream h, LayerNorm, softmax, biases, the dconv,
-the state x, eps and the noise z.  The kernel takes bfloat16 only (Hopper
-tensor cores); the plain version also takes float32, which the CPU tests
-use against the JAX kernel in float32.
+the state x, eps and the noise z.  Both take ``compute_dtype`` bfloat16
+with a bfloat16 pack, and float32 with a bfloat16 pack (the JAX
+Generator's default at one or two clips a device) or a float32 one
+(``fused_dtype=float32``); bfloat16 compute on a float32 pack is refused,
+as the JAX package never builds it.  The kernel is one template with an
+instantiation for each compute dtype: bf16 operands on the tensor cores,
+or, for float32, every product as split TF32 on the tensor cores (two
+MMAs a product on a bf16 pack, whose values are exact in TF32, three on
+an f32 pack), with the token table, the memory rows and P in float32 too
+(``csrc/fused_ddim.cu``).
 
 Noise of the stochastic sampler, defined once for the kernel and the plain
 version (``fused_noise``): z for element (clip, row r, lane n) of step s
@@ -56,7 +63,8 @@ scratch, which stays in L2.  Both attentions run on the tensor cores, 16
 queries per pass, with the softmax in float32 between the two products.
 
 What bounds the kernel on an H100: no SM holds the ~8.7 MB of bf16 weights
-(227 KB of shared memory), so every step re-reads every weight from L2,
+(17.4 MB as the float32 instantiation reads them; 227 KB of shared
+memory), so every step re-reads every weight from L2,
 and the matmul k-loops run on the few rows of one clip as chains of
 dependent k-steps.  One clip runs on a thread-block cluster of C blocks
 (``cluster_plan``: the largest of 8, 4, 2 that divides the heads and lets
@@ -99,6 +107,10 @@ CLUSTER_SIZES = (8, 4, 2, 1)  # blocks per clip; 8 is the portable limit
 #: launches of the CUDA kernel (never of the plain version); callers that
 #: want a per-run count set it to 0 first
 launches = 0
+#: the same launches by (compute dtype, pack weight dtype): the bf16
+#: instantiation is (bfloat16, bfloat16), the float32 one either
+#: (float32, bfloat16) or (float32, float32)
+launches_by_dtype: dict = {}
 #: the cluster size of the last launch
 last_cluster = None
 
@@ -490,32 +502,38 @@ def _align128(b: int) -> int:
 
 
 def smem_bytes(t: int, d_model: int, dp_pad: int, ff_chunk: int,
-               half: bool = False) -> int:
+               half: bool = False, f32: bool = False) -> int:
     """Dynamic shared memory of one block; mirrors ``make_layout`` in
     ``csrc/fused_ddim.cu``.  The memory length does not enter: the memory
     K and V live in the global scratch.  ``half``: a warp stages its
-    32-column strip as two 16-column halves."""
+    32-column strip as two 16-column halves.  ``f32``: the float32
+    instantiation, whose operand rows take 4 bytes and whose attention
+    operands live in the global scratch too."""
     mtx = -(-t // 16)
+    ob = 4 if f32 else 2
     lda, ldm = max(d_model, dp_pad) + 8, d_model + 8
-    cq = _align128(t * (d_model + 8) * 2)
-    big = max(16 * mtx * (3 * d_model + 8) * 2, cq + 16 * ldm * 2,
-              16 * mtx * (ff_chunk + 8) * 2, 16 * mtx * ldm * 2)
+    if f32:
+        big = max(16 * ldm * 4, 16 * mtx * (ff_chunk + 8) * 4)
+    else:
+        cq = _align128(t * (d_model + 8) * 2)
+        big = max(16 * mtx * (3 * d_model + 8) * 2, cq + 16 * ldm * 2,
+                  16 * mtx * (ff_chunk + 8) * 2, 16 * mtx * ldm * 2)
     stage_warp = max(16 * mtx * (STRIP // 2 if half else STRIP), 16 * MAX_DK)
-    return (_align128(t * d_model * 4) + _align128(16 * mtx * lda * 2)
+    return (_align128(t * d_model * 4) + _align128(16 * mtx * lda * ob)
             + _align128(big) + _align128(NWARPS * stage_warp * 4))
 
 
-def smem_plan(t: int, d_model: int, dp_pad: int, ffn: int):
+def smem_plan(t: int, d_model: int, dp_pad: int, ffn: int, f32: bool = False):
     """(bytes, FF chunk, half): with full-strip staging first, then with
     half strips, halve the FF hidden chunk until a block fits."""
     for half in (False, True):
         fc = ffn
-        while (smem_bytes(t, d_model, dp_pad, fc, half) > SMEM_LIMIT
+        while (smem_bytes(t, d_model, dp_pad, fc, half, f32) > SMEM_LIMIT
                and fc % (2 * STRIP) == 0):
             fc //= 2
-        if smem_bytes(t, d_model, dp_pad, fc, half) <= SMEM_LIMIT:
+        if smem_bytes(t, d_model, dp_pad, fc, half, f32) <= SMEM_LIMIT:
             break
-    return smem_bytes(t, d_model, dp_pad, fc, half), fc, half
+    return smem_bytes(t, d_model, dp_pad, fc, half, f32), fc, half
 
 
 def cluster_plan(n: int, heads: int, max_clusters) -> int:
@@ -530,13 +548,18 @@ def cluster_plan(n: int, heads: int, max_clusters) -> int:
     return 1
 
 
-def scratch_elems(n_mem: int, d_model: int, n_layers: int) -> int:
-    """bfloat16 elements of one clip's memory K/V scratch: per layer one
-    row of [K | V] per memory row, n_mem rounded up to whole 16-row tiles."""
-    return n_layers * 2 * d_model * _round_up(n_mem, 16)
+def scratch_elems(n_mem: int, d_model: int, n_layers: int, t: int = 0) -> int:
+    """Operand elements of one clip's scratch: the memory K/V, per layer one
+    row of [K | V] per memory row, n_mem rounded up to whole 16-row tiles;
+    with the window ``t`` (the float32 instantiation only), then the
+    attention operands, one row of [q | k | v] per window row, rounded the
+    same way."""
+    return (n_layers * 2 * d_model * _round_up(n_mem, 16)
+            + _round_up(t, 16) * 3 * d_model)
 
 
-def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int):
+def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int,
+                 f32: bool = False):
     """Raise on what the kernel does not take; return (FF chunk, half)."""
     n, t, dp = x_T.shape
     n_mem, d_model = mem_rows.shape[1], packed.w_emm.shape[0]
@@ -551,7 +574,7 @@ def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int):
     if d_model % STRIP or dp % STRIP or ffn % STRIP:
         raise ValueError(f"kernel needs d_model, padded d_pose and the FF width "
                          f"to be multiples of {STRIP}")
-    nbytes, fc, half = smem_plan(t, d_model, dp, ffn)
+    nbytes, fc, half = smem_plan(t, d_model, dp, ffn, f32)
     if nbytes > SMEM_LIMIT or fc % STRIP or ffn % fc:
         raise ValueError(f"kernel's shared-memory plan needs {nbytes} bytes "
                          f"> {SMEM_LIMIT} (T={t}, D={d_model})")
@@ -559,7 +582,7 @@ def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int):
 
 
 _LIB = None
-N_PTRS, N_DIMS = 35, 14
+N_PTRS, N_DIMS = 35, 16
 
 
 def _library():
@@ -577,13 +600,13 @@ def bind_library(lib):
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
     lib.fused_ddim_launch.restype = ctypes.c_int
-    lib.fused_ddim_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_ddim_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.fused_ddim_smem_bytes.restype = ctypes.c_int
-    lib.fused_ddim_scratch_elems.argtypes = [ctypes.c_int] * 3
+    lib.fused_ddim_scratch_elems.argtypes = [ctypes.c_int] * 4
     lib.fused_ddim_scratch_elems.restype = ctypes.c_longlong
-    lib.fused_ddim_max_clusters.argtypes = [ctypes.c_int] * 2
+    lib.fused_ddim_max_clusters.argtypes = [ctypes.c_int] * 3
     lib.fused_ddim_max_clusters.restype = ctypes.c_int
-    lib.fused_ddim_cluster_size.argtypes = [ctypes.c_int] * 3
+    lib.fused_ddim_cluster_size.argtypes = [ctypes.c_int] * 4
     lib.fused_ddim_cluster_size.restype = ctypes.c_int
     return lib
 
@@ -597,14 +620,15 @@ def _current(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def max_clusters(lib, c: int, smem: int, device) -> int:
+def max_clusters(lib, c: int, smem: int, device, f32: bool = False) -> int:
     """Clusters of c blocks with ``smem`` bytes each that the card runs at
-    once, asked of the built library once per (library, device, c, smem);
+    once, for the bf16 or (``f32``) the float32 instantiation, asked of the
+    built library once per (library, device, c, smem, instantiation);
     raises on a CUDA error."""
-    key = (id(lib), str(device), c, smem)
+    key = (id(lib), str(device), c, smem, f32)
     if key not in _MAX_CLUSTERS:
         with _current(torch.device(device)):
-            m = lib.fused_ddim_max_clusters(c, smem)
+            m = lib.fused_ddim_max_clusters(c, smem, int(f32))
         if m < 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for "
                                f"clusters of {c}: CUDA error {-m}")
@@ -616,20 +640,34 @@ def max_clusters(lib, c: int, smem: int, device) -> int:
 #: B fragment is 32-bit loads along k
 _TRANSPOSED = ("w_embx", "self_wqkv", "self_wo", "cross_wq", "cross_wkv",
                "cross_wo", "ff_w1", "ff_w2", "w_out")
+#: the pack's tensors the kernel reads, in its pointer order (the step
+#: MLP, emb_mem and pe_m0 enter through the token table)
+_KERNEL_READS = ("w_embx", "b_embx", "pe_x", "self_wqkv", "self_bqkv",
+                 "self_dconv", "self_dbias", "self_wo", "self_bo", "cross_wq",
+                 "cross_bq", "cross_wkv", "cross_bkv", "cross_dq", "cross_dqb",
+                 "cross_dkv", "cross_dkvb", "cross_wo", "cross_bo", "ff_w1",
+                 "ff_b1", "ff_w2", "ff_b2", "w_out", "b_out")
 _KERNEL_SIDE: dict = {}
 
 
-def kernel_weights(packed: PackedDenoiser) -> dict:
-    """The pack's product weights as the kernel reads them (transposed
-    copies, ~9 MB at the flagship), made once per pack and kept for as
-    long as the pack lives: the entry is keyed on the pack's ``w_embx``
-    tensor and dropped when that tensor is freed, so a caller that drops
-    its cached pack (``Generator.update_variables``) drops these too."""
-    key = id(packed.w_embx)
+def kernel_weights(packed: PackedDenoiser, compute_dtype=torch.bfloat16) -> dict:
+    """The pack's tensors as the kernel of ``compute_dtype`` reads them: the
+    product weights as transposed copies (~9 MB at the flagship in bf16),
+    and for float32 every weight in float32 (a TF32 fragment loads f32;
+    a bf16 pack's values are unchanged, ~17 MB), made once per pack and
+    compute dtype and kept for as long as the pack lives: the entry is
+    keyed on the pack's ``w_embx`` tensor and dropped when that tensor is
+    freed, so a caller that drops its cached pack
+    (``Generator.update_variables``) drops these too."""
+    key = (id(packed.w_embx), compute_dtype)
     hit = _KERNEL_SIDE.get(key)
     if hit is None:
-        hit = {name: getattr(packed, name).transpose(-1, -2).contiguous()
-               for name in _TRANSPOSED}
+        hit = {}
+        for name in _KERNEL_READS:
+            w = getattr(packed, name)
+            if name in _TRANSPOSED:
+                w = w.transpose(-1, -2).contiguous()
+            hit[name] = w.to(torch.float32) if compute_dtype == torch.float32 else w
         _KERNEL_SIDE[key] = hit
         weakref.finalize(packed.w_embx, _KERNEL_SIDE.pop, key, None)
     return hit
@@ -642,33 +680,42 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
     """Launch the kernel.  ``cluster`` forces the blocks per clip (tests
     and ``chip_smoke.py``); by default ``cluster_plan`` picks it."""
     global launches, last_cluster
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernel computes with bfloat16 operands only "
-                         f"(got compute_dtype={compute_dtype})")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("the CUDA kernel computes with bfloat16 or float32 "
+                         f"operands (got compute_dtype={compute_dtype})")
+    f32 = compute_dtype == torch.float32
     dev = x_T.device
+    # float32 compute takes a bf16 or an f32 pack, bfloat16 compute a bf16
+    # one only (the JAX package never builds bf16 compute on f32 weights)
+    wd = packed.w_embx.dtype if f32 else torch.bfloat16
     for name, w in packed._asdict().items():
-        want = torch.float32 if name in ("pe_x", "pe_m0", "b_out") else torch.bfloat16
+        want = torch.float32 if name in ("pe_x", "pe_m0", "b_out") else wd
         if w.device != dev or w.dtype != want or not w.is_contiguous():
             raise ValueError(f"packed.{name} must be a contiguous {want} tensor "
-                             f"on {dev} (got {w.dtype} on {w.device})")
+                             f"on {dev} for compute_dtype {compute_dtype} (got "
+                             f"{w.dtype} on {w.device})")
+    if wd not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the pack's weights must be bfloat16 or float32, "
+                         f"not {wd}")
     for name, a in (("x_T", x_T), ("mem_rows", mem_rows), ("blend_a", blend_a),
                     ("blend_b", blend_b), ("x_add", x_add)):
         if a is not None and (a.device != dev or a.dtype != torch.float32
                               or not a.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-    fc, half = _kernel_plan(packed, x_T, mem_rows, heads)
+    fc, half = _kernel_plan(packed, x_T, mem_rows, heads, f32)
     n, t, dp = x_T.shape
     d_model = packed.w_emm.shape[0]
     lib = _library()
     if cluster is None:
-        nbytes = smem_bytes(t, d_model, dp, fc, half)
+        nbytes = smem_bytes(t, d_model, dp, fc, half, f32)
         cluster = cluster_plan(n, heads,
-                               lambda c: max_clusters(lib, c, nbytes, dev))
+                               lambda c: max_clusters(lib, c, nbytes, dev, f32))
     elif cluster not in CLUSTER_SIZES or heads % cluster:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES} and divide "
                          f"heads ({heads}); got {cluster}")
-    mem = mem_rows.to(torch.bfloat16)
-    tok = step_tokens(packed, tmap, compute_dtype).to(torch.bfloat16).contiguous()
+    # the memory rows and the token table are operands: in the compute dtype
+    mem = mem_rows.to(compute_dtype)
+    tok = step_tokens(packed, tmap, compute_dtype).to(compute_dtype).contiguous()
     # five columns for either sampler; DDIM leaves the last one unread
     coef5 = torch.zeros((num_steps, 5), dtype=torch.float32, device=dev)
     ncol = min(coefs.shape[1], 5)
@@ -677,23 +724,22 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
     seed_t = torch.as_tensor(seed, dtype=torch.int64).reshape(1).to(dev)
     out = torch.empty_like(x_T)
     # zeroed: attention loads the pad rows of the last 16-row tile
-    kv = torch.zeros((n, scratch_elems(mem.shape[1], d_model, n_layers)),
-                     dtype=torch.bfloat16, device=dev)
-    p, kt = packed, kernel_weights(packed)
+    kv = torch.zeros((n, scratch_elems(mem.shape[1], d_model, n_layers,
+                                       t if f32 else 0)),
+                     dtype=compute_dtype, device=dev)
+    kt = kernel_weights(packed, compute_dtype)
     tensors = [x_T, out, mem, tok, coef5, blend_a, blend_b, x_add, kv, seed_t,
-               kt["w_embx"], p.b_embx, p.pe_x,
-               kt["self_wqkv"], p.self_bqkv, p.self_dconv, p.self_dbias,
-               kt["self_wo"], p.self_bo,
-               kt["cross_wq"], p.cross_bq, kt["cross_wkv"], p.cross_bkv,
-               p.cross_dq, p.cross_dqb, p.cross_dkv, p.cross_dkvb,
-               kt["cross_wo"], p.cross_bo,
-               kt["ff_w1"], p.ff_b1, kt["ff_w2"], p.ff_b2, kt["w_out"], p.b_out]
+               *(kt[name] for name in _KERNEL_READS)]
     ptrs = (ctypes.c_void_p * N_PTRS)(
         *[None if a is None else a.data_ptr() for a in tensors])
+    # the last two: float32 operands, and whether the weights' low TF32
+    # part counts (an f32 pack; a bf16 pack's values are exact in TF32)
     dims = (ctypes.c_int * N_DIMS)(n, t, mem.shape[1], d_model, dp,
-                                   p.ff_w1.shape[2], n_layers, heads, num_steps,
-                                   fc, int(half), int(bool(stochastic)),
-                                   cluster, int(clip_base))
+                                   packed.ff_w1.shape[2], n_layers, heads,
+                                   num_steps, fc, int(half),
+                                   int(bool(stochastic)), cluster,
+                                   int(clip_base), int(f32),
+                                   int(wd == torch.float32))
     # the launch is asynchronous: the temporaries above (mem, tok, coef5,
     # seed_t, the scratch) may be freed on return because the caching
     # allocator only reuses their blocks for work queued after the kernel
@@ -707,6 +753,8 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
         raise RuntimeError(f"fused_ddim kernel launch failed (clusters of "
                            f"{cluster} blocks): CUDA error {rc}")
     launches += 1
+    key = (compute_dtype, wd)
+    launches_by_dtype[key] = launches_by_dtype.get(key, 0) + 1
     last_cluster = cluster
     return out
 

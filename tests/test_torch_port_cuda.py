@@ -24,6 +24,9 @@ D_POSE, T, N_LAYERS = 12, 8, 2
 # bf16 operands on both sides, f32 sums in another order: rounding flips
 # cascade to the bf16 level (PERF.md, tools/fused_ddim_precision.py)
 BAR = 5e-3
+# the float32 instantiation (split TF32, f32 sums) against the plain
+# version in float32 with TF32 off: found near 1e-6 at ddim50 (PERF.md)
+F32_BAR = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -59,23 +62,35 @@ def _inputs(n, t, n_mem, blend, seed, x_add=False):
     return x, mem, a, b, xa
 
 
+# (compute dtype, pack weight dtype, bar): the bf16 instantiation and the
+# float32 one on either pack
+COMPUTE = {"bf16": (torch.bfloat16, torch.bfloat16, BAR),
+           "f32": (torch.float32, torch.bfloat16, F32_BAR),
+           "f32w": (torch.float32, torch.float32, F32_BAR)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,n_mem,blend", [
     (1, T, 16, False), (3, T, 16, True), (5, 40, 32, True), (2, 34, 47, False),
     (2, 40, 92, False), (2, 10, 13, True), (1, 64, 128, True), (1, 49, 2, False)])
-def test_kernel_matches_plain(card, n, t, n_mem, blend):
-    p = fs.pack_oneway_denoiser(card, D_POSE, t)
+@pytest.mark.parametrize("compute", sorted(COMPUTE))
+def test_kernel_matches_plain(card, compute, n, t, n_mem, blend):
+    """Windows of 8 to 64 frames and memories of 2 to 128 rows, in each
+    instantiation."""
+    compute_dtype, weights, bar = COMPUTE[compute]
+    p = fs.pack_oneway_denoiser(card, D_POSE, t, weight_dtype=weights)
     sched, tmap = make_diffusion("linear", 100, "ddim10")
     x, mem, a, b = _inputs(n, t, n_mem, blend, seed=n + t)
     args = (p, x, mem, tmap.cuda(), fs.ddim_coefficients(sched).cuda(), a, b,
-            N_LAYERS, 8, sched.num_timesteps)
-    before = fs.launches
+            N_LAYERS, 8, sched.num_timesteps, compute_dtype)
+    key = (compute_dtype, weights)
+    before = fs.launches, fs.launches_by_dtype.get(key, 0)
     k = fs.fused_ddim_sample(*args)
     torch.cuda.synchronize()
-    assert fs.launches == before + 1
+    assert (fs.launches, fs.launches_by_dtype[key]) == (before[0] + 1, before[1] + 1)
     ref = fs.fused_ddim_sample_plain(*args)
     assert torch.isfinite(k).all()
-    assert _rel(k, ref) < BAR
+    assert _rel(k, ref) < bar
 
 
 @pytest.mark.cuda
@@ -85,23 +100,27 @@ def test_kernel_matches_plain(card, n, t, n_mem, blend):
     (2, T, 16, True, False, True),        # DDPM, blend update
     (2, 40, 92, True, True, True),        # all of them at a 92-row memory
     (1, 64, 128, False, True, True)])     # the longest window and memory
-def test_new_variants_match_plain(card, n, t, n_mem, blend, x_add, stochastic):
-    p = fs.pack_oneway_denoiser(card, D_POSE, t)
+@pytest.mark.parametrize("compute", sorted(COMPUTE))
+def test_new_variants_match_plain(card, compute, n, t, n_mem, blend, x_add,
+                                  stochastic):
+    compute_dtype, weights, bar = COMPUTE[compute]
+    p = fs.pack_oneway_denoiser(card, D_POSE, t, weight_dtype=weights)
     sched, tmap = make_diffusion("linear", 100, "ddim10")
     x, mem, a, b, xa = _inputs(n, t, n_mem, blend, seed=n + t, x_add=True)
     coefs = (fs.ddpm_coefficients(sched) if stochastic
              else fs.ddim_coefficients(sched)).cuda()
     args = (p, x, mem, tmap.cuda(), coefs, a, b, N_LAYERS, 8,
-            sched.num_timesteps)
+            sched.num_timesteps, compute_dtype)
     kw = dict(stochastic=stochastic, seed=torch.tensor([77], device="cuda"),
               x_add=xa if x_add else None)
-    before = fs.launches
+    key = (compute_dtype, weights)
+    before = fs.launches, fs.launches_by_dtype.get(key, 0)
     k = fs.fused_ddim_sample(*args, **kw)
     torch.cuda.synchronize()
-    assert fs.launches == before + 1
+    assert (fs.launches, fs.launches_by_dtype[key]) == (before[0] + 1, before[1] + 1)
     ref = fs.fused_ddim_sample_plain(*args, **kw)
     assert torch.isfinite(k).all()
-    assert _rel(k, ref) < BAR
+    assert _rel(k, ref) < bar
     if stochastic:
         other = fs.fused_ddim_sample(*args, **{**kw, "seed": 78})
         assert _rel(other, ref) > BAR            # the seed is felt
@@ -142,32 +161,39 @@ def test_cluster_kernel_matches_plain(card, cluster, variant, n):
 
 
 @pytest.mark.cuda
-def test_cluster_noise_is_bit_equal_across_sizes(card):
+@pytest.mark.parametrize("compute,weights", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_cluster_noise_is_bit_equal_across_sizes(card, compute, weights):
     """One step with coefficients (0, 0, 0, 0, 1) returns z: the same bits
-    whatever the cluster size, and the plain version's."""
-    p = fs.pack_oneway_denoiser(card, D_POSE, 40)
+    whatever the cluster size and the instantiation, and fused_noise's on
+    the card."""
+    p = fs.pack_oneway_denoiser(card, D_POSE, 40, weight_dtype=weights)
     x, mem, _, _ = _inputs(3, 40, 16, False, seed=6)
     seed = (7 << 32) | 99
     zs = {c: fs._fused_ddim_cuda(
         p, x, mem, torch.tensor([0], device="cuda"),
         torch.tensor([[0.0, 0.0, 0.0, 0.0, 1.0]], device="cuda"), None, None,
-        N_LAYERS, 8, 1, torch.bfloat16, True, seed, cluster=c) for c in (1, 2, 4, 8)}
+        N_LAYERS, 8, 1, compute, True, seed, cluster=c) for c in (1, 2, 4, 8)}
     ref = fs.fused_noise(seed, 0, 3, 40, 128, device="cuda")
     for c, z in zs.items():
         assert torch.equal(z, zs[1]), c
-    assert float((zs[8] - ref).abs().max()) < 1e-5
+        assert torch.equal(z, ref), c
 
 
 @pytest.mark.cuda
-def test_cluster_plan_matches_the_library(card):
+@pytest.mark.parametrize("f32", [False, True])
+def test_cluster_plan_matches_the_library(card, f32):
+    """The Python plan is the library's, for each instantiation at its own
+    shared memory."""
     lib = fs._library()
-    nbytes = fs.smem_plan(40, 256, 128, 1024)[0]
+    nbytes = fs.smem_plan(40, 256, 128, 1024, f32)[0]
     for n in (1, 3, 16, 17, 33, 34, 64, 66, 67, 128, 200):
-        want = lib.fused_ddim_cluster_size(n, 8, nbytes)
+        want = lib.fused_ddim_cluster_size(n, 8, nbytes, int(f32))
         assert fs.cluster_plan(n, 8, lambda c: fs.max_clusters(
-            lib, c, nbytes, "cuda:0")) == want, n
+            lib, c, nbytes, "cuda:0", f32)) == want, n
     assert fs.cluster_plan(1, 8, lambda c: fs.max_clusters(
-        lib, c, nbytes, "cuda:0")) == 8
+        lib, c, nbytes, "cuda:0", f32)) == 8
 
 
 @pytest.mark.cuda
@@ -217,16 +243,25 @@ def test_clip_base_draws_the_batch_noise(card, base):
 
 
 @pytest.mark.cuda
-def test_generator_over_two_shards_on_one_card(card):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_generator_over_two_shards_on_one_card(card, dtype):
     """A mesh whose two devices are the one card: two launches of 2 clips
     give the unsharded DDPM batch of 4 bit for bit (both plan clusters of
-    8); a batch of 3 runs unsharded in one launch."""
+    8) at a fixed fused_dtype; a batch of 3 runs unsharded in one launch.
+    With no fused_dtype the policy reads the shard's batch: float32 for 2
+    clips a shard, bfloat16 for the whole batch of 4."""
     from gesture_diffusion_torch.parallel import make_mesh
 
     sched, tmap = make_diffusion("linear", 100, "ddim10")
-    sharded = Generator(card, sched, tmap, mesh=make_mesh(devices=["cuda:0"] * 2))
-    whole = Generator(card, sched, tmap)
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    sharded = Generator(card, sched, tmap, fused_dtype=dtype, mesh=mesh)
+    whole = Generator(card, sched, tmap, fused_dtype=dtype)
     wav = torch.randn(4, 16000, generator=torch.Generator().manual_seed(7)) * 0.3
+    noise = torch.zeros(4, T, D_POSE, device="cuda")
+    assert Generator(card, sched, tmap, mesh=mesh).fused_args(
+        wav.cuda(), D_POSE, T, noise)["compute_dtype"] == torch.float32
+    assert Generator(card, sched, tmap).fused_args(
+        wav.cuda(), D_POSE, T, noise)["compute_dtype"] == torch.bfloat16
     outs = []
     for gen in (sharded, whole):
         before = fs.launches
@@ -297,6 +332,10 @@ def test_generator_runs_fused_on_card(card):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(card):
+    """129 memory rows are refused; float32 compute on f32 weights launches
+    the float32 instantiation (held against its plain version); bf16
+    compute on f32 weights, which the JAX package never builds, is
+    refused."""
     p = fs.pack_oneway_denoiser(card, D_POSE, T)
     sched, tmap = make_diffusion("linear", 100, "ddim10")
     x, mem, _, _ = _inputs(1, T, 129, False, seed=3)   # 129 memory rows
@@ -305,11 +344,56 @@ def test_kernel_refuses_what_it_cannot_take(card):
                              fs.ddim_coefficients(sched).cuda(), None, None,
                              N_LAYERS, 8, sched.num_timesteps)
     f32 = fs.pack_oneway_denoiser(card, D_POSE, T, weight_dtype=torch.float32)
-    with pytest.raises(ValueError):
-        fs.fused_ddim_sample(f32, x, mem[:, :16], tmap.cuda(),
-                             fs.ddim_coefficients(sched).cuda(), None, None,
-                             N_LAYERS, 8, sched.num_timesteps,
-                             compute_dtype=torch.float32)
+    args = (f32, x, mem[:, :16].contiguous(), tmap.cuda(),
+            fs.ddim_coefficients(sched).cuda(), None, None, N_LAYERS, 8,
+            sched.num_timesteps)
+    before = fs.launches
+    k = fs.fused_ddim_sample(*args, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 1
+    ref = fs.fused_ddim_sample_plain(*args, compute_dtype=torch.float32)
+    assert torch.isfinite(k).all() and _rel(k, ref) < F32_BAR
+    with pytest.raises(ValueError, match="packed.w_embx"):
+        fs.fused_ddim_sample(*args, compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("n", [1, 3, 64])
+@pytest.mark.parametrize("weights", [torch.bfloat16, torch.float32])
+def test_f32_kernel_matches_plain(card, weights, n, variant, cluster):
+    """The float32 instantiation on a bf16 pack (the JAX default at one or
+    two clips a device) and on an f32 pack (fused_dtype=float32): every
+    variant at batches 1, 3 and 64, at the planned and at every forced
+    cluster size (the float32 plan takes all four), against the plain
+    version in float32."""
+    n_mem, blend, stochastic, x_add = VARIANTS[variant]
+    p = fs.pack_oneway_denoiser(card, D_POSE, 40, weight_dtype=weights)
+    sched, tmap = make_diffusion("linear", 100, "ddim10")
+    x, mem, a, b, xa = _inputs(n, 40, n_mem, blend, seed=11 * n + (cluster or 0),
+                               x_add=True)
+    coefs = (fs.ddpm_coefficients(sched) if stochastic
+             else fs.ddim_coefficients(sched)).cuda()
+    args = dict(packed=p, x_T=x, mem_rows=mem, tmap=tmap.cuda(), coefs=coefs,
+                blend_a=a, blend_b=b, n_layers=N_LAYERS, heads=8,
+                num_steps=sched.num_timesteps, compute_dtype=torch.float32,
+                stochastic=stochastic, seed=torch.tensor([93], device="cuda"),
+                x_add=xa if x_add else None)
+    before = dict(fs.launches_by_dtype)
+    k = (fs.fused_ddim_sample(**args) if cluster is None
+         else fs._fused_ddim_cuda(**args, cluster=cluster))
+    torch.cuda.synchronize()
+    key = (torch.float32, weights)
+    assert fs.launches_by_dtype[key] == before.get(key, 0) + 1
+    assert cluster is None or fs.last_cluster == cluster
+    ref = fs.fused_ddim_sample_plain(**args)
+    assert torch.isfinite(k).all()
+    assert _rel(k, ref) < F32_BAR
+    if weights == torch.bfloat16:
+        # the bf16 instantiation on the same pack is off by bf16 rounding
+        bf = fs.fused_ddim_sample(**{**args, "compute_dtype": torch.bfloat16})
+        assert _rel(bf, ref) > 10 * _rel(k, ref)
 
 
 def _train_case(model_type, dtype):

@@ -409,8 +409,8 @@ class _StubLibrary:
         self.blocks.append(dims[0] * dims[12])    # n clusters of C blocks
         return 0
 
-    def fused_ddim_max_clusters(self, c, smem):
-        assert 0 < smem <= fs.SMEM_LIMIT
+    def fused_ddim_max_clusters(self, c, smem, f32):
+        assert 0 < smem <= fs.SMEM_LIMIT and f32 in (0, 1)
         return H100_CLUSTERS[c]
 
 
@@ -459,7 +459,8 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
     assert ptrs[5] == a.data_ptr() and ptrs[6] == b.data_ptr()
     assert ptrs[7] is None and ptrs[8] is not None and ptrs[9] is not None
     # 3 clips fit in one wave of clusters of 8: 24 blocks
-    assert dims == [3, T, 16, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 0, 8, 0]
+    assert dims == [3, T, 16, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 0, 8, 0,
+                    0, 0]
     assert stub.blocks[-1] == 24 and fs.last_cluster == 8
     # the kernel-side transposed weights are made once per pack
     kt = fs.kernel_weights(p)
@@ -476,7 +477,8 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
                               torch.tensor([1234567890123]), x_add, 96)
     ptrs, dims = stub.calls[-1]
     assert ptrs[7] == x_add.data_ptr() and ptrs[10] == kt["w_embx"].data_ptr()
-    assert dims == [3, T, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 1, 8, 96]
+    assert dims == [3, T, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, 4 * DM, 0, 1, 8, 96,
+                    0, 0]
     # the forced cluster size reaches the launch, n * C blocks of arguments
     for c in fs.CLUSTER_SIZES:
         fs._fused_ddim_cuda(p, x, mem92, tmap, torch.zeros(10, 5), a, b,
@@ -484,6 +486,11 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
                             cluster=c)
         assert stub.calls[-1][1][12] == c and stub.blocks[-1] == 3 * c
         assert stub.calls[-1][0][0] == x.data_ptr() and fs.last_cluster == c
+    # float32 compute on this bf16 pack launches the float32 instantiation
+    # (its dims and operands: test_torch_port_f32_kernel.py)
+    fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
+                        N_LAYERS, 8, 10, torch.float32)
+    assert stub.calls[-1][1][14:] == [1, 0]
     for bad in (3, 16, 0):
         with pytest.raises(ValueError, match="cluster must be one of"):
             fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
@@ -508,9 +515,10 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
                             N_LAYERS, 8, 10, torch.bfloat16)
     assert len(stub.calls) == n_calls
 
-    with pytest.raises(ValueError, match="bfloat16 operands"):
+    # other compute dtypes than bfloat16 and float32 are refused
+    with pytest.raises(ValueError, match="bfloat16 or float32 operands"):
         fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
-                            N_LAYERS, 8, 10, torch.float32)
+                            N_LAYERS, 8, 10, torch.float16)
     with pytest.raises(ValueError, match="contiguous"):
         fs._fused_ddim_cuda(p, x.transpose(1, 2).contiguous().transpose(1, 2),
                             mem, tmap, torch.zeros(10, 4), a, b, N_LAYERS, 8,
@@ -519,6 +527,7 @@ def test_cuda_wrapper_marshalling(packs, monkeypatch):
         fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
                             N_LAYERS, 8, 10, torch.bfloat16, False, 0,
                             x_add.double())
+    # bf16 compute on f32 weights: a combination the JAX package never builds
     f32 = fs.pack_oneway_denoiser(packs[0], D_POSE, T, weight_dtype=torch.float32)
     with pytest.raises(ValueError, match="packed.w_embx"):
         fs._fused_ddim_cuda(f32, x, mem, tmap, torch.zeros(10, 4), a, b,
@@ -529,6 +538,7 @@ def test_kernel_weights_live_and_die_with_the_pack(packs):
     import gc
 
     p = fs.pack_oneway_denoiser(packs[0], D_POSE, T)
+    gc.collect()                # earlier tests' packs may wait in cycles
     n0 = len(fs._KERNEL_SIDE)
     kt = fs.kernel_weights(p)
     assert len(fs._KERNEL_SIDE) == n0 + 1

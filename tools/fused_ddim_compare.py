@@ -106,7 +106,9 @@ def main() -> int:
     model = build_all(cfg, D_POSE, device=dev,
                       generator=torch.Generator().manual_seed(0)).model
     sched, tmap = make_diffusion("linear", 1000)
-    gen = Generator(model, sched, tmap, device=dev)
+    # the bf16 instantiation at every batch (the default policy computes
+    # batch 1 in float32, which a source before it does not have)
+    gen = Generator(model, sched, tmap, fused_dtype=torch.bfloat16, device=dev)
     old, new = build([args.old, args.new])
     g = torch.Generator(device=dev).manual_seed(1)
     cases = {}

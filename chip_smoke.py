@@ -91,7 +91,8 @@ Phases (any failure raises and the script exits non-zero):
   9. ``configs/tedexp-ours.json`` at full width (``tedexp_paths``; the
      10-layer cross-attention decoder, d_model 512, d_pose 126, 34-frame
      windows at 15 fps), which no fused kernel serves: ``generate_sample``
-     at batches 1 and 32 at 1000 steps and ``generate_sequence`` over
+     at batches 1 and 32 on a ddim250 schedule (ms a step: the scan's
+     steps cost alike) and ``generate_sequence`` over
      2 x 10 s at ddim50, on the scan sampler; one ``denoise`` call and a 50-step sample
      on the card against the CPU (TF32 off); queued training at batch 32
      (windows/s, peak MB) and one batch-4 step against the CPU (phase 6's
@@ -1254,9 +1255,13 @@ TED_DENOISE_BAR, TED_SAMPLE_BAR = 1e-4, 1e-3
 # float32 error is held to 4 times the CPU's here
 TED_TRUNK_RATIO = 4.0
 TED_CLI_SECONDS = 20
+# generate_sample on the schedule respaced to TED_SAMPLE_RESPACING: the
+# scan sampler's steps are host-bound and alike (24-50 ms each), so 250 of
+# them time a step as well as 1000 did, in a quarter of the script's time
+TED_SAMPLE_RESPACING = "ddim250"
 # generate_sequence: 2 x 10 s (five windows, four seams) on the schedule
 # respaced to TED_SEQ_RESPACING; at 1000 host-bound scan steps a window
-# takes 38-48 s, which generate_sample's lines already time
+# takes 38-48 s, which generate_sample's ms a step already gives
 TED_SEQ_SECONDS, TED_SEQ_RESPACING = 10.0, "ddim50"
 TED_CLI_SPLITS = {"n_train": 8, "n_val": 4, "n_test": 4}
 TED_CLI_STEPS = 6        # one epoch: 8 x 27 windows at batch 32
@@ -1344,16 +1349,18 @@ def tedexp_paths(smi, dev) -> dict:
         raise AssertionError("the tedexp model on the card is off the CPU's")
     summary.update(denoise_rel=r_denoise, ddim50_rel=r_sample)
 
-    # -- serving: the scan sampler, all 1000 steps ---------------------------
-    gen = Generator(b.model, b.eval_schedule, b.eval_timestep_map, device=dev)
+    # -- serving: the scan sampler, TED_SAMPLE_RESPACING's steps ---------------
+    gen = Generator(b.model, *make_diffusion("linear", 1000, TED_SAMPLE_RESPACING),
+                    device=dev)
     draw = torch.Generator(device=dev).manual_seed(92)
     for n in (1, TED_BATCH):
         wav = seeded_audio(93 + n, n, window / fps)
         mean_ms, _, out = host_ms(lambda: gen.generate_sample(
             wav, d_pose, window, generator=draw), reps=1, warmup=0)
         log(f"[tedexp] generate_sample ddim, batch {n:2d}, "
-            f"{gen.num_steps} steps: {mean_ms:.1f} ms ({mean_ms / gen.num_steps:.3f} "
-            f"ms a step, {n * 1e6 / mean_ms:.1f} windows' steps/s), "
+            f"{gen.num_steps} steps ({TED_SAMPLE_RESPACING}): {mean_ms:.1f} ms "
+            f"({mean_ms / gen.num_steps:.3f} ms a step, "
+            f"{n * 1e3 * gen.num_steps / mean_ms:.1f} windows' steps/s), "
             f"last_sample_path={gen.last_sample_path} [{smi}]")
         if (gen.last_sample_path != "scan" or tuple(out.shape) != (n, window, d_pose)
                 or not torch.isfinite(out).all()):
@@ -3029,27 +3036,38 @@ def main(argv=None) -> int:
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
+    lib = fs._library()
     for f32 in (False, True):
         for t in (8, WINDOW, 49, 64):
-            nbytes, fc, half = fs.smem_plan(t, 256, 128, 1024, f32)
-            if nbytes != fs._library().fused_ddim_smem_bytes(
-                    t, 256, 128, fc, int(half), int(f32)):
-                raise AssertionError("Python and CUDA shared-memory plans "
-                                     "disagree")
-        if fs.scratch_elems(92, 256, 4, WINDOW if f32 else 0) != \
-                fs._library().fused_ddim_scratch_elems(92, 256, 4,
-                                                       WINDOW if f32 else 0):
-            raise AssertionError("Python and CUDA scratch sizes disagree")
-        nbytes = fs.smem_plan(WINDOW, 256, 128, 1024, f32)[0]
-        occupancy = {c: fs.max_clusters(fs._library(), c, nbytes, dev, f32)
+            for c in fs.CLUSTER_SIZES:
+                nbytes, fc, half = fs.smem_plan(t, 256, 128, 1024, f32, c)
+                if nbytes != lib.fused_ddim_smem_bytes(
+                        t, 256, 128, fc, int(half), int(f32), c) or (
+                        f32 and fs.attention_shared(t, 256, 128, fc, half, c)
+                        != bool(lib.fused_ddim_attention_shared(
+                            t, 256, 128, fc, int(half), c))):
+                    raise AssertionError("Python and CUDA shared-memory plans "
+                                         f"disagree at T {t}, C {c}")
+        for t in (0, WINDOW):
+            if fs.scratch_elems(92, 256, 4, t) != \
+                    lib.fused_ddim_scratch_elems(92, 256, 4, t):
+                raise AssertionError("Python and CUDA scratch sizes disagree")
+        plan = {c: fs.smem_plan(WINDOW, 256, 128, 1024, f32, c)
+                for c in fs.CLUSTER_SIZES}
+        occupancy = {c: fs.max_clusters(lib, c, plan[c][0], dev, f32)
                      for c in fs.CLUSTER_SIZES}
         plans = {n: fs.cluster_plan(n, 8, occupancy.__getitem__)
                  for n in (1, 3, 16, 17, 33, 64, 67, 128)}
-        log(f"[build] {'float32' if f32 else 'bf16'} instantiation: clusters "
-            f"of C blocks ({nbytes} bytes each) the card runs at once: "
-            f"{occupancy}; planned C by batch: {plans}")
+        where = {c: ("shared" if fs.attention_shared(WINDOW, 256, 128, fc, half, c)
+                     else "global") for c, (_, fc, half) in plan.items()}
+        log(f"[build] {'float32' if f32 else 'bf16'} instantiation at T "
+            f"{WINDOW}: bytes a block by C {({c: b for c, (b, _, _) in plan.items()})}"
+            + (f", attention operands by C {where}" if f32 else "")
+            + f"; clusters of C blocks the card runs at once: {occupancy}; "
+            f"planned C by batch: {plans}")
         for n, c in plans.items():
-            if fs._library().fused_ddim_cluster_size(n, 8, nbytes, int(f32)) != c:
+            if lib.fused_ddim_cluster_size(n, 8, WINDOW, 256, 128, 1024,
+                                           int(f32)) != c:
                 raise AssertionError(f"Python and CUDA cluster plans disagree "
                                      f"at batch {n}")
 
@@ -3260,18 +3278,21 @@ def main(argv=None) -> int:
                 ms = cuda_ms(lambda: fs.fused_ddim_sample(**args),
                              reps=2 if compute == torch.bfloat16 else 1)
                 cluster = fs.last_cluster
+                placed = fs.last_plan["attention"]
                 # the plain version's code is warm from phase 3
                 plain = cuda_ms(lambda: fs.fused_ddim_sample_plain(**args),
                                 reps=1, warmup=False)
             b, by, every = bound_ms(args)
             timings[variant, n] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                       bound_by=by, cluster=cluster)
+                                       bound_by=by, cluster=cluster,
+                                       attention=placed)
             weights = str(args["packed"].w_embx.dtype).replace("torch.", "")
             log(f"[kernel-time] {mt} {alg}{' x0-blend' if blend else ''}, n_mem "
                 f"{args['mem_rows'].shape[1]}, compute "
                 f"{str(compute).replace('torch.', '')} on {weights} weights, "
                 f"batch {n:2d}, 1000 steps: kernel "
-                f"{ms:.3f} ms (clusters of {cluster}), plain {plain:.3f} ms, bound {b:.3f} ms ({by}; "
+                f"{ms:.3f} ms (clusters of {cluster}, attention operands in "
+                f"{placed}), plain {plain:.3f} ms, bound {b:.3f} ms ({by}; "
                 f"{every:.3f} ms with the memory K/V counted on every step) "
                 f"[{smi}]")
 

@@ -34,9 +34,14 @@ Generator's default at one or two clips a device) or a float32 one
 (``fused_dtype=float32``); bfloat16 compute on a float32 pack is refused,
 as the JAX package never builds it.  The kernel is one template with an
 instantiation for each compute dtype: bf16 operands on the tensor cores,
-or, for float32, every product as split TF32 on the tensor cores (two
-MMAs a product on a bf16 pack, whose values are exact in TF32, three on
-an f32 pack), with the token table, the memory rows and P in float32 too
+or, for float32, every projection as three bf16 pieces of the float32
+activation against the exact bf16 weight (``split3_bf16``: the pieces sum
+to the activation exactly, and each piece times a bf16 weight is exact in
+the float32 accumulator), three bf16 MMAs a 16-deep step on a bf16 pack;
+an f32 pack's weights are split the same way once, into three bf16
+planes, and a product takes the six terms down to the float32 level.
+Attention's products (activations on both sides) run as split TF32.  The
+token table, the memory rows and P are float32 too
 (``csrc/fused_ddim.cu``).
 
 Noise of the stochastic sampler, defined once for the kernel and the plain
@@ -63,16 +68,22 @@ scratch, which stays in L2.  Both attentions run on the tensor cores, 16
 queries per pass, with the softmax in float32 between the two products.
 
 What bounds the kernel on an H100: no SM holds the ~8.7 MB of bf16 weights
-(17.4 MB as the float32 instantiation reads them; 227 KB of shared
-memory), so every step re-reads every weight from L2,
-and the matmul k-loops run on the few rows of one clip as chains of
-dependent k-steps.  One clip runs on a thread-block cluster of C blocks
+(both instantiations read a bf16 pack's transposed bf16 weights; an f32
+pack's three bf16 planes take 25.6 MB; 227 KB of shared memory), so every
+step re-reads every weight from L2, and the matmul k-loops run on the few
+rows of one clip as chains of dependent k-steps; each k-step's weights
+load while the previous one's products run.  One clip runs on a
+thread-block cluster of C blocks
 (``cluster_plan``: the largest of 8, 4, 2 that divides the heads and lets
 all n clusters run in one wave, else 1), each with a full replica of the
 clip's shared-memory layout; the cluster spreads every product's column
 strips and K over its 8C warps and each block's epilogues write into every
 replica.  Later work (weights through a TMA ring, wgmma, clips sharing a
-block) attacks the weight stream itself.  ``bound_ms`` in
+block) attacks the weight stream itself.  The float32 instantiation's
+operand rows take 4 bytes, so a block holds only its own heads' q/k/v
+and cross queries, in the area of the FF hidden chunk, where that fits
+(``smem_plan`` per cluster size: at the flagship C = 2, 4, 8), and the
+global scratch holds them otherwise (C = 1).  ``bound_ms`` in
 ``chip_smoke.py`` gives the least time for the work.
 """
 
@@ -113,6 +124,11 @@ launches = 0
 launches_by_dtype: dict = {}
 #: the cluster size of the last launch
 last_cluster = None
+#: the plan of the last launch: cluster, ff_chunk, half (half-strip
+#: staging), attention ("shared memory" or "the global scratch": where the
+#: float32 instantiation's attention operands live; bf16: every block's
+#: replica)
+last_plan = None
 
 
 class PackedDenoiser(NamedTuple):
@@ -501,47 +517,74 @@ def _align128(b: int) -> int:
     return (b + 127) // 128 * 128
 
 
-def smem_bytes(t: int, d_model: int, dp_pad: int, ff_chunk: int,
-               half: bool = False, f32: bool = False) -> int:
-    """Dynamic shared memory of one block; mirrors ``make_layout`` in
-    ``csrc/fused_ddim.cu``.  The memory length does not enter: the memory
-    K and V live in the global scratch.  ``half``: a warp stages its
-    32-column strip as two 16-column halves.  ``f32``: the float32
-    instantiation, whose operand rows take 4 bytes and whose attention
-    operands live in the global scratch too."""
+def _layout(t: int, d_model: int, dp_pad: int, ff_chunk: int, half: bool,
+            f32: bool, cluster: int):
+    """(bytes, attention operands in shared memory) of one block; mirrors
+    ``make_layout`` in ``csrc/fused_ddim.cu``."""
     mtx = -(-t // 16)
     ob = 4 if f32 else 2
     lda, ldm = max(d_model, dp_pad) + 8, d_model + 8
+    srows = max(_round_up(t, 8), 16) if f32 else 16 * mtx   # rows staged
+    stage_warp = max(srows * (STRIP // 2 if half else STRIP), 16 * MAX_DK)
+    stage = _align128(NWARPS * stage_warp * 4)
+    off = _align128(t * d_model * 4) + _align128(16 * mtx * lda * ob)
+    shared = False
     if f32:
-        big = max(16 * ldm * 4, 16 * mtx * (ff_chunk + 8) * 4)
+        rest = max(16 * ldm * 4, 16 * mtx * (ff_chunk + 8) * 4)
+        hc = d_model // cluster
+        own = max(rest, 16 * mtx * (3 * hc + 8) * 4,
+                  _align128(t * (hc + 8) * 4) + 16 * ldm * 4)
+        shared = off + _align128(own) + stage <= SMEM_LIMIT
+        big = own if shared else rest
     else:
         cq = _align128(t * (d_model + 8) * 2)
         big = max(16 * mtx * (3 * d_model + 8) * 2, cq + 16 * ldm * 2,
                   16 * mtx * (ff_chunk + 8) * 2, 16 * mtx * ldm * 2)
-    stage_warp = max(16 * mtx * (STRIP // 2 if half else STRIP), 16 * MAX_DK)
-    return (_align128(t * d_model * 4) + _align128(16 * mtx * lda * ob)
-            + _align128(big) + _align128(NWARPS * stage_warp * 4))
+    return off + _align128(big) + stage, shared
 
 
-def smem_plan(t: int, d_model: int, dp_pad: int, ffn: int, f32: bool = False):
-    """(bytes, FF chunk, half): with full-strip staging first, then with
-    half strips, halve the FF hidden chunk until a block fits."""
+def smem_bytes(t: int, d_model: int, dp_pad: int, ff_chunk: int,
+               half: bool = False, f32: bool = False, cluster: int = 1) -> int:
+    """Dynamic shared memory of one block; mirrors ``make_layout`` in
+    ``csrc/fused_ddim.cu``.  The memory length does not enter: the memory
+    K and V live in the global scratch.  ``half``: a warp stages its
+    32-column strip as two 16-column halves.  ``f32``: the float32
+    instantiation, whose operand rows take 4 bytes and whose blocks of a
+    cluster of ``cluster`` hold their own heads' attention operands where
+    that fits (``attention_shared``)."""
+    return _layout(t, d_model, dp_pad, ff_chunk, half, f32, cluster)[0]
+
+
+def attention_shared(t: int, d_model: int, dp_pad: int, ff_chunk: int,
+                     half: bool, cluster: int) -> bool:
+    """Whether the float32 instantiation's attention operands live in
+    shared memory (each block of the cluster its own heads' q/k/v and cross
+    queries) or in the global scratch; mirrors ``make_layout``."""
+    return _layout(t, d_model, dp_pad, ff_chunk, half, True, cluster)[1]
+
+
+def smem_plan(t: int, d_model: int, dp_pad: int, ffn: int, f32: bool = False,
+              cluster: int = 1):
+    """(bytes, FF chunk, half) for clusters of ``cluster`` blocks: with
+    full-strip staging first, then with half strips, halve the FF hidden
+    chunk until a block fits.  Mirrors ``plan_layout`` in
+    ``csrc/fused_ddim.cu``."""
     for half in (False, True):
         fc = ffn
-        while (smem_bytes(t, d_model, dp_pad, fc, half, f32) > SMEM_LIMIT
+        while (smem_bytes(t, d_model, dp_pad, fc, half, f32, cluster) > SMEM_LIMIT
                and fc % (2 * STRIP) == 0):
             fc //= 2
-        if smem_bytes(t, d_model, dp_pad, fc, half, f32) <= SMEM_LIMIT:
+        if smem_bytes(t, d_model, dp_pad, fc, half, f32, cluster) <= SMEM_LIMIT:
             break
-    return smem_bytes(t, d_model, dp_pad, fc, half, f32), fc, half
+    return smem_bytes(t, d_model, dp_pad, fc, half, f32, cluster), fc, half
 
 
 def cluster_plan(n: int, heads: int, max_clusters) -> int:
     """Blocks per clip for n clips: the largest C of 8, 4, 2 that divides
     ``heads`` (a block owns whole heads) and for which all n clusters run at
-    once, ``max_clusters(C) >= n`` (the card's figure at the kernel's shared
-    memory, ``cudaOccupancyMaxActiveClusters``); else 1.  Mirrors
-    ``fused_ddim_cluster_size`` in ``csrc/fused_ddim.cu``."""
+    once, ``max_clusters(C) >= n`` (the card's figure at the shared memory
+    of the plan for C, ``cudaOccupancyMaxActiveClusters``); else 1.
+    Mirrors ``fused_ddim_cluster_size`` in ``csrc/fused_ddim.cu``."""
     for c in CLUSTER_SIZES[:-1]:
         if heads % c == 0 and max_clusters(c) >= n:
             return c
@@ -551,7 +594,8 @@ def cluster_plan(n: int, heads: int, max_clusters) -> int:
 def scratch_elems(n_mem: int, d_model: int, n_layers: int, t: int = 0) -> int:
     """Operand elements of one clip's scratch: the memory K/V, per layer one
     row of [K | V] per memory row, n_mem rounded up to whole 16-row tiles;
-    with the window ``t`` (the float32 instantiation only), then the
+    with the window ``t`` (the float32 instantiation where its attention
+    operands live in the scratch, ``attention_shared`` false), then the
     attention operands, one row of [q | k | v] per window row, rounded the
     same way."""
     return (n_layers * 2 * d_model * _round_up(n_mem, 16)
@@ -559,8 +603,9 @@ def scratch_elems(n_mem: int, d_model: int, n_layers: int, t: int = 0) -> int:
 
 
 def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int,
-                 f32: bool = False):
-    """Raise on what the kernel does not take; return (FF chunk, half)."""
+                 f32: bool = False, cluster: int = 1):
+    """Raise on what the kernel does not take; return (FF chunk, half) for
+    clusters of ``cluster`` blocks."""
     n, t, dp = x_T.shape
     n_mem, d_model = mem_rows.shape[1], packed.w_emm.shape[0]
     ffn, dk = packed.ff_w1.shape[2], d_model // heads
@@ -574,7 +619,7 @@ def _kernel_plan(packed: PackedDenoiser, x_T, mem_rows, heads: int,
     if d_model % STRIP or dp % STRIP or ffn % STRIP:
         raise ValueError(f"kernel needs d_model, padded d_pose and the FF width "
                          f"to be multiples of {STRIP}")
-    nbytes, fc, half = smem_plan(t, d_model, dp, ffn, f32)
+    nbytes, fc, half = smem_plan(t, d_model, dp, ffn, f32, cluster)
     if nbytes > SMEM_LIMIT or fc % STRIP or ffn % fc:
         raise ValueError(f"kernel's shared-memory plan needs {nbytes} bytes "
                          f"> {SMEM_LIMIT} (T={t}, D={d_model})")
@@ -600,14 +645,17 @@ def bind_library(lib):
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
     lib.fused_ddim_launch.restype = ctypes.c_int
-    lib.fused_ddim_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.fused_ddim_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.fused_ddim_smem_bytes.restype = ctypes.c_int
     lib.fused_ddim_scratch_elems.argtypes = [ctypes.c_int] * 4
     lib.fused_ddim_scratch_elems.restype = ctypes.c_longlong
     lib.fused_ddim_max_clusters.argtypes = [ctypes.c_int] * 3
     lib.fused_ddim_max_clusters.restype = ctypes.c_int
-    lib.fused_ddim_cluster_size.argtypes = [ctypes.c_int] * 4
+    lib.fused_ddim_cluster_size.argtypes = [ctypes.c_int] * 7
     lib.fused_ddim_cluster_size.restype = ctypes.c_int
+    if hasattr(lib, "fused_ddim_attention_shared"):   # older sources lack it
+        lib.fused_ddim_attention_shared.argtypes = [ctypes.c_int] * 6
+        lib.fused_ddim_attention_shared.restype = ctypes.c_int
     return lib
 
 
@@ -650,24 +698,52 @@ _KERNEL_READS = ("w_embx", "b_embx", "pe_x", "self_wqkv", "self_bqkv",
 _KERNEL_SIDE: dict = {}
 
 
+def split3_bf16(x: torch.Tensor):
+    """Three bfloat16 pieces of float32 ``x``: x1 = bf16(x), x2 = bf16(x -
+    x1), x3 = bf16(x - x1 - x2), each rounded to nearest even; every
+    difference is exact in float32, so x1 + x2 + x3 == x for finite x
+    within bfloat16's exponent range.  The split the float32 instantiation
+    makes of its activations in registers, and of an f32 pack's weights
+    once (``kernel_weights``)."""
+    x = x.float()
+    x1 = x.to(torch.bfloat16)
+    r = x - x1.float()
+    x2 = r.to(torch.bfloat16)
+    return x1, x2, (r - x2.float()).to(torch.bfloat16)
+
+
+def _interleave(planes) -> torch.Tensor:
+    """(..., N, K) planes -> (..., N, K/16, P, 16) as (..., N, P K): a
+    16-deep k-step of a row holds the P planes side by side."""
+    *lead, k = planes[0].shape
+    tiles = [w.reshape(*lead, k // 16, 16) for w in planes]
+    return torch.stack(tiles, dim=-2).reshape(*lead, len(planes) * k).contiguous()
+
+
 def kernel_weights(packed: PackedDenoiser, compute_dtype=torch.bfloat16) -> dict:
-    """The pack's tensors as the kernel of ``compute_dtype`` reads them: the
-    product weights as transposed copies (~9 MB at the flagship in bf16),
-    and for float32 every weight in float32 (a TF32 fragment loads f32;
-    a bf16 pack's values are unchanged, ~17 MB), made once per pack and
-    compute dtype and kept for as long as the pack lives: the entry is
-    keyed on the pack's ``w_embx`` tensor and dropped when that tensor is
-    freed, so a caller that drops its cached pack
+    """The pack's tensors as the kernel reads them, made once per pack and
+    kept for as long as the pack lives: the product weights transposed,
+    (N, K) row-major (~9 MB at the flagship in bf16), everything else as
+    the pack holds it.  Both instantiations read a bf16 pack's tensors, the
+    same ones (no float32 copy).  The float32 instantiation reads an f32
+    pack's product weights as their three bf16 pieces (``split3_bf16``),
+    interleaved per 16 k (``_interleave``: 25.6 MB at the flagship).  The
+    entry is keyed on the pack's ``w_embx`` tensor and dropped when that
+    tensor is freed, so a caller that drops its cached pack
     (``Generator.update_variables``) drops these too."""
-    key = (id(packed.w_embx), compute_dtype)
+    planes = packed.w_embx.dtype == torch.float32
+    if planes and compute_dtype != torch.float32:
+        raise ValueError("the bf16 instantiation reads a bf16 pack only")
+    key = id(packed.w_embx)
     hit = _KERNEL_SIDE.get(key)
     if hit is None:
         hit = {}
         for name in _KERNEL_READS:
             w = getattr(packed, name)
             if name in _TRANSPOSED:
-                w = w.transpose(-1, -2).contiguous()
-            hit[name] = w.to(torch.float32) if compute_dtype == torch.float32 else w
+                w = w.transpose(-1, -2)
+                w = _interleave(split3_bf16(w)) if planes else w.contiguous()
+            hit[name] = w
         _KERNEL_SIDE[key] = hit
         weakref.finalize(packed.w_embx, _KERNEL_SIDE.pop, key, None)
     return hit
@@ -679,7 +755,7 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
                      cluster=None):
     """Launch the kernel.  ``cluster`` forces the blocks per clip (tests
     and ``chip_smoke.py``); by default ``cluster_plan`` picks it."""
-    global launches, last_cluster
+    global launches, last_cluster, last_plan
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("the CUDA kernel computes with bfloat16 or float32 "
                          f"operands (got compute_dtype={compute_dtype})")
@@ -702,17 +778,21 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
         if a is not None and (a.device != dev or a.dtype != torch.float32
                               or not a.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-    fc, half = _kernel_plan(packed, x_T, mem_rows, heads, f32)
+    # the plan fits at every cluster size or at none (the float32 layout
+    # holds its attention operands in shared memory only where that fits)
+    _kernel_plan(packed, x_T, mem_rows, heads, f32)
     n, t, dp = x_T.shape
     d_model = packed.w_emm.shape[0]
     lib = _library()
+    ffn = packed.ff_w1.shape[2]
     if cluster is None:
-        nbytes = smem_bytes(t, d_model, dp, fc, half, f32)
-        cluster = cluster_plan(n, heads,
-                               lambda c: max_clusters(lib, c, nbytes, dev, f32))
+        cluster = cluster_plan(n, heads, lambda c: max_clusters(
+            lib, c, smem_plan(t, d_model, dp, ffn, f32, c)[0], dev, f32))
     elif cluster not in CLUSTER_SIZES or heads % cluster:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES} and divide "
                          f"heads ({heads}); got {cluster}")
+    fc, half = _kernel_plan(packed, x_T, mem_rows, heads, f32, cluster)
+    shared = f32 and attention_shared(t, d_model, dp, fc, half, cluster)
     # the memory rows and the token table are operands: in the compute dtype
     mem = mem_rows.to(compute_dtype)
     tok = step_tokens(packed, tmap, compute_dtype).to(compute_dtype).contiguous()
@@ -725,15 +805,15 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
     out = torch.empty_like(x_T)
     # zeroed: attention loads the pad rows of the last 16-row tile
     kv = torch.zeros((n, scratch_elems(mem.shape[1], d_model, n_layers,
-                                       t if f32 else 0)),
+                                       t if f32 and not shared else 0)),
                      dtype=compute_dtype, device=dev)
     kt = kernel_weights(packed, compute_dtype)
     tensors = [x_T, out, mem, tok, coef5, blend_a, blend_b, x_add, kv, seed_t,
                *(kt[name] for name in _KERNEL_READS)]
     ptrs = (ctypes.c_void_p * N_PTRS)(
         *[None if a is None else a.data_ptr() for a in tensors])
-    # the last two: float32 operands, and whether the weights' low TF32
-    # part counts (an f32 pack; a bf16 pack's values are exact in TF32)
+    # the last two: float32 operands, and an f32 pack (its product weights
+    # as three bf16 planes, its other tensors in float32)
     dims = (ctypes.c_int * N_DIMS)(n, t, mem.shape[1], d_model, dp,
                                    packed.ff_w1.shape[2], n_layers, heads,
                                    num_steps, fc, int(half),
@@ -756,6 +836,9 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
     key = (compute_dtype, wd)
     launches_by_dtype[key] = launches_by_dtype.get(key, 0) + 1
     last_cluster = cluster
+    last_plan = dict(cluster=cluster, ff_chunk=fc, half=half,
+                     attention="shared memory" if shared else (
+                         "the global scratch" if f32 else "every replica"))
     return out
 
 

@@ -6,9 +6,13 @@ package.  A host C++ source (``<name>.cpp``): ``g++ -O3 -shared -fPIC``
 into ``build/host/``.  (``.gitignore`` lists ``/build/``.)  The library
 name carries a hash of the source and flags, so an edited source is never
 served from a stale build; the output is written to a temporary name and
-renamed, so concurrent builders cannot load a half-written file.  Loaded
-with ``ctypes``.  A compiler that is missing or fails raises; nothing
-falls back to another route.
+renamed, so concurrent builds cannot load a half-written file.  A CUDA
+source that declares ``#define KERNEL_BUILD_PARTS n`` is compiled as n
+objects at once, each with ``-DKERNEL_BUILD_PART=k`` (the source emits
+one part of its code for each k), and linked into the one library: its
+kernels' instantiations compile in parallel.  Loaded with ``ctypes``.  A
+compiler that is missing or fails raises; nothing falls back to another
+route.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -62,14 +67,42 @@ def _build(name: str, src: Path, out_dir: Path, compiler, flags) -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     exe = compiler()
     t0 = time.perf_counter()
-    proc = subprocess.run([exe, *flags, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    parts = re.search(r"^#define KERNEL_BUILD_PARTS (\d+)", src.read_text(),
+                      re.M) if src.suffix == ".cu" else None
+    if parts is None:
+        log = _run([exe, *flags, "-o", str(tmp), str(src)], exe, src)
+    else:
+        objs = [tmp.with_name(f"{tmp.name}.{k}.o")
+                for k in range(int(parts.group(1)))]
+        compile_flags = [f for f in flags if f != "-shared"]
+        procs = [subprocess.Popen(
+            [exe, *compile_flags, "-c", f"-DKERNEL_BUILD_PART={k}", "-o",
+             str(obj), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for k, obj in enumerate(objs)]
+        logs = [proc.communicate()[1] for proc in procs]
+        try:
+            for proc, err in zip(procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{Path(exe).name} failed on {src}:\n"
+                                       f"{err[-8000:]}")
+            link = [f for f in flags if f not in ("-Xptxas", "-v")]
+            log = "".join(logs) + _run([exe, *link, "-o", str(tmp),
+                                        *map(str, objs)], exe, src)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+    os.replace(tmp, out)
+    BUILD_INFO[name] = (out, time.perf_counter() - t0, log)
+    return out
+
+
+def _run(cmd, exe, src) -> str:
+    """Run one compiler command; its stderr, or raise with it."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{Path(exe).name} failed on {src}:\n"
                            f"{proc.stderr[-8000:]}")
-    os.replace(tmp, out)
-    BUILD_INFO[name] = (out, time.perf_counter() - t0, proc.stderr)
-    return out
+    return proc.stderr
 
 
 def build_library(name: str) -> Path:

@@ -76,7 +76,9 @@ COMPUTE = {"bf16": (torch.bfloat16, torch.bfloat16, BAR),
 @pytest.mark.parametrize("compute", sorted(COMPUTE))
 def test_kernel_matches_plain(card, compute, n, t, n_mem, blend):
     """Windows of 8 to 64 frames and memories of 2 to 128 rows, in each
-    instantiation."""
+    instantiation; the float32 one also at every forced cluster size (its
+    attention operands in shared memory or in the global scratch, as the
+    plan for that size and window places them)."""
     compute_dtype, weights, bar = COMPUTE[compute]
     p = fs.pack_oneway_denoiser(card, D_POSE, t, weight_dtype=weights)
     sched, tmap = make_diffusion("linear", 100, "ddim10")
@@ -91,6 +93,20 @@ def test_kernel_matches_plain(card, compute, n, t, n_mem, blend):
     ref = fs.fused_ddim_sample_plain(*args)
     assert torch.isfinite(k).all()
     assert _rel(k, ref) < bar
+    _at_every_cluster(args, {}, ref, bar)
+
+
+def _at_every_cluster(args, kw, ref, bar):
+    """The float32 instantiation at every forced cluster size within bar
+    of the plain version's ``ref``."""
+    if args[10] != torch.float32:
+        return
+    for c in fs.CLUSTER_SIZES:
+        kc = fs._fused_ddim_cuda(*args, **kw, cluster=c)
+        torch.cuda.synchronize()
+        assert fs.last_cluster == c
+        assert torch.isfinite(kc).all() and _rel(kc, ref) < bar, (
+            c, fs.last_plan, _rel(kc, ref))
 
 
 @pytest.mark.cuda
@@ -121,6 +137,7 @@ def test_new_variants_match_plain(card, compute, n, t, n_mem, blend, x_add,
     ref = fs.fused_ddim_sample_plain(*args, **kw)
     assert torch.isfinite(k).all()
     assert _rel(k, ref) < bar
+    _at_every_cluster(args, kw, ref, bar)
     if stochastic:
         other = fs.fused_ddim_sample(*args, **{**kw, "seed": 78})
         assert _rel(other, ref) > BAR            # the seed is felt
@@ -184,16 +201,28 @@ def test_cluster_noise_is_bit_equal_across_sizes(card, compute, weights):
 @pytest.mark.cuda
 @pytest.mark.parametrize("f32", [False, True])
 def test_cluster_plan_matches_the_library(card, f32):
-    """The Python plan is the library's, for each instantiation at its own
-    shared memory."""
+    """The Python plan is the library's, for each instantiation at the
+    shared memory of its plan for each cluster size; so are the plan's
+    bytes and the float32 attention placement."""
     lib = fs._library()
-    nbytes = fs.smem_plan(40, 256, 128, 1024, f32)[0]
+
+    def nbytes(c):
+        return fs.smem_plan(40, 256, 128, 1024, f32, c)[0]
+
     for n in (1, 3, 16, 17, 33, 34, 64, 66, 67, 128, 200):
-        want = lib.fused_ddim_cluster_size(n, 8, nbytes, int(f32))
+        want = lib.fused_ddim_cluster_size(n, 8, 40, 256, 128, 1024, int(f32))
         assert fs.cluster_plan(n, 8, lambda c: fs.max_clusters(
-            lib, c, nbytes, "cuda:0", f32)) == want, n
+            lib, c, nbytes(c), "cuda:0", f32)) == want, n
     assert fs.cluster_plan(1, 8, lambda c: fs.max_clusters(
-        lib, c, nbytes, "cuda:0", f32)) == 8
+        lib, c, nbytes(c), "cuda:0", f32)) == 8
+    for t in (8, 40, 64):
+        for c in fs.CLUSTER_SIZES:
+            b, fc, half = fs.smem_plan(t, 256, 128, 1024, f32, c)
+            assert lib.fused_ddim_smem_bytes(t, 256, 128, fc, int(half),
+                                             int(f32), c) == b
+            assert lib.fused_ddim_attention_shared(t, 256, 128, fc, int(half),
+                                                   c) == fs.attention_shared(
+                t, 256, 128, fc, half, c)
 
 
 @pytest.mark.cuda
@@ -366,8 +395,9 @@ def test_f32_kernel_matches_plain(card, weights, n, variant, cluster):
     """The float32 instantiation on a bf16 pack (the JAX default at one or
     two clips a device) and on an f32 pack (fused_dtype=float32): every
     variant at batches 1, 3 and 64, at the planned and at every forced
-    cluster size (the float32 plan takes all four), against the plain
-    version in float32."""
+    cluster size (the float32 plan takes all four: the attention operands
+    in the global scratch at C = 1, in shared memory above), against the
+    plain version in float32."""
     n_mem, blend, stochastic, x_add = VARIANTS[variant]
     p = fs.pack_oneway_denoiser(card, D_POSE, 40, weight_dtype=weights)
     sched, tmap = make_diffusion("linear", 100, "ddim10")
@@ -387,6 +417,8 @@ def test_f32_kernel_matches_plain(card, weights, n, variant, cluster):
     key = (torch.float32, weights)
     assert fs.launches_by_dtype[key] == before.get(key, 0) + 1
     assert cluster is None or fs.last_cluster == cluster
+    assert fs.last_plan["attention"] == (
+        "the global scratch" if fs.last_cluster == 1 else "shared memory")
     ref = fs.fused_ddim_sample_plain(**args)
     assert torch.isfinite(k).all()
     assert _rel(k, ref) < F32_BAR

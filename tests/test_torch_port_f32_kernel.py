@@ -392,10 +392,13 @@ class _StubLibrary:
 
 def test_cuda_wrapper_marshalling_f32(bf16_packs, monkeypatch):
     """Float32 compute on a bf16 and on an f32 pack: the dims' last two
-    entries, the operand dtypes the kernel reads (every weight, the memory
-    rows, the token table and the scratch in f32), the scratch's attention
-    area, and the float32 plan, which fits a Hopper block at the
-    flagship."""
+    entries, the tensors the kernel reads (a bf16 pack's as they are, the
+    same ones the bf16 instantiation reads; an f32 pack's product weights
+    as three interleaved bf16 planes, its other tensors in f32; the memory
+    rows, the token table and the scratch in f32), the float32 plan, which
+    fits a Hopper block at the flagship, and the scratch's attention area,
+    there only where the attention operands live in the global scratch
+    (clusters of one block at the flagship)."""
     model = bf16_packs[0]
     _, tmap = make_diffusion("linear", 100, "ddim10")
     x, mem, a, b = (torch.from_numpy(v) for v in _inputs(3, 180, "ramp", t=40,
@@ -411,42 +414,65 @@ def test_cuda_wrapper_marshalling_f32(bf16_packs, monkeypatch):
         seen["scratch"] = real_zeros(*shape, **kw)
         return seen["scratch"]
 
-    nbytes, fc, half = fs.smem_plan(40, DM, DP, 4 * DM, f32=True)
-    assert nbytes <= fs.SMEM_LIMIT and (fc, half) == (256, False)
-    assert nbytes == fs.smem_bytes(40, DM, DP, 256, False, True) == 191488
-    for wd, wlo in ((torch.bfloat16, 0), (torch.float32, 1)):
+    nbytes, fc, half = fs.smem_plan(40, DM, DP, 4 * DM, f32=True, cluster=8)
+    assert nbytes <= fs.SMEM_LIMIT and (fc, half) == (512, False)
+    assert nbytes == fs.smem_bytes(40, DM, DP, 512, False, True, 8) == 232448
+    assert fs.attention_shared(40, DM, DP, 512, False, 8)
+    for wd, wpack in ((torch.bfloat16, 0), (torch.float32, 1)):
         p = fs.pack_oneway_denoiser(model, D_POSE, 40, weight_dtype=wd)
-        before = dict(fs.launches_by_dtype)
-        seen.clear()
-        monkeypatch.setattr(torch, "zeros", zeros)
-        out = fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
-                                  N_LAYERS, 8, 10, torch.float32)
-        monkeypatch.setattr(torch, "zeros", real_zeros)
-        assert out.shape == x.shape
-        assert fs.launches_by_dtype.get((torch.float32, wd), 0) == \
-            before.get((torch.float32, wd), 0) + 1
-        ptrs, dims = stub.calls[-1]
-        assert len(dims) == fs.N_DIMS == 16
-        assert dims == [3, 40, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, fc, 0, 0, 8,
-                        0, 1, wlo]
-        assert stub.smem[-1] == (nbytes, 1)
+        for cluster, shared in ((None, True), (1, False)):
+            before = dict(fs.launches_by_dtype)
+            seen.clear()
+            monkeypatch.setattr(torch, "zeros", zeros)
+            out = fs._fused_ddim_cuda(p, x, mem, tmap, torch.zeros(10, 4), a, b,
+                                      N_LAYERS, 8, 10, torch.float32,
+                                      cluster=cluster)
+            monkeypatch.setattr(torch, "zeros", real_zeros)
+            assert out.shape == x.shape
+            assert fs.launches_by_dtype.get((torch.float32, wd), 0) == \
+                before.get((torch.float32, wd), 0) + 1
+            ptrs, dims = stub.calls[-1]
+            assert len(dims) == fs.N_DIMS == 16
+            assert dims == [3, 40, 92, DM, DP, 4 * DM, N_LAYERS, 8, 10, fc, 0, 0,
+                            cluster or 8, 0, 1, wpack]
+            assert fs.last_plan == dict(
+                cluster=cluster or 8, ff_chunk=512, half=False,
+                attention="shared memory" if shared else "the global scratch")
+            # memory K/V of 92 rows in 96, then with the global placement 48
+            # rows of [q | k | v]
+            kv = seen["scratch"]
+            assert kv.dtype == torch.float32 and kv.shape == (
+                3, N_LAYERS * 2 * DM * 96 + (0 if shared else 48 * 3 * DM))
+            assert kv.shape[1] == fs.scratch_elems(92, DM, N_LAYERS,
+                                                   0 if shared else 40)
+        # the planned C asked the card (once: the answer is cached) about
+        # clusters of 8 at their plan
+        assert stub.smem[0] == (nbytes, 1)
         kt = fs.kernel_weights(p, torch.float32)
-        assert all(kt[k].dtype == torch.float32 and kt[k].is_contiguous()
-                   for k in kt)
         assert ptrs[10:] == [kt[k].data_ptr() for k in fs._KERNEL_READS]
-        assert kt["self_wqkv"].shape == (N_LAYERS, 3 * DM, DM)
-        np.testing.assert_array_equal(kt["ff_w1"].numpy(),
-                                      p.ff_w1.float().transpose(-1, -2).numpy())
+        assert all(kt[k].is_contiguous() for k in kt)
+        assert kt["pe_x"].dtype == kt["b_out"].dtype == torch.float32
+        assert all(kt[k].dtype == wd for k in fs._KERNEL_READS
+                   if k not in fs._TRANSPOSED + ("pe_x", "b_out"))
+        assert all(kt[k].dtype == torch.bfloat16 for k in fs._TRANSPOSED)
+        if wd == torch.bfloat16:
+            # the bf16 instantiation's tensors, not a float32 copy
+            assert fs.kernel_weights(p) is kt
+            assert kt["self_wqkv"].shape == (N_LAYERS, 3 * DM, DM)
+            np.testing.assert_array_equal(
+                kt["ff_w1"].float().numpy(),
+                p.ff_w1.float().transpose(-1, -2).numpy())
+        else:
+            assert kt["self_wqkv"].shape == (N_LAYERS, 3 * DM, 3 * DM)
+            planes = kt["ff_w1"].reshape(N_LAYERS, 4 * DM, DM // 16, 3, 16)
+            np.testing.assert_array_equal(
+                planes.double().sum(dim=3).reshape(N_LAYERS, 4 * DM, DM).numpy(),
+                p.ff_w1.transpose(-1, -2).double().numpy())
         assert fs.kernel_weights(p, torch.float32) is kt
-        assert fs.kernel_weights(p) is not kt
-        # memory K/V of 92 rows in 96, then 48 rows of [q | k | v]
-        kv = seen["scratch"]
-        assert kv.dtype == torch.float32 and kv.shape == (
-            3, N_LAYERS * 2 * DM * 96 + 48 * 3 * DM)
-        assert kv.shape[1] == fs.scratch_elems(92, DM, N_LAYERS, 40)
     # the longest window fits the float32 plan too, with a smaller FF chunk
-    nbytes, fc, half = fs.smem_plan(64, DM, DP, 4 * DM, f32=True)
-    assert nbytes <= fs.SMEM_LIMIT and (4 * DM) % fc == 0 and fc >= fs.STRIP
+    for c in fs.CLUSTER_SIZES:
+        nbytes, fc, half = fs.smem_plan(64, DM, DP, 4 * DM, f32=True, cluster=c)
+        assert nbytes <= fs.SMEM_LIMIT and (4 * DM) % fc == 0 and fc >= fs.STRIP
     # bf16 compute on an f32 pack and half precision are refused
     p32 = fs.pack_oneway_denoiser(model, D_POSE, 40, weight_dtype=torch.float32)
     with pytest.raises(ValueError, match="for compute_dtype torch.bfloat16"):

@@ -1,0 +1,7 @@
+"""Operations the sequences need over the traced seconds at the card's bf16 peak, in percent."""
+
+from benchmark.common.readers import mfu_pct
+
+
+def read(rec):
+    return mfu_pct(rec)

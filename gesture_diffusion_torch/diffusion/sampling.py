@@ -7,7 +7,9 @@ Port of ``gesture_diffusion_tpu/diffusion/sampling.py``
 clip.  These are the samplers of ``Generator(use_fused=False)`` and of
 every decoder the fused kernel does not serve (all but the oneway one);
 a oneway ``Generator`` runs the fused kernel instead
-(``ops/fused_sampler.py``).
+(``ops/fused_sampler.py``).  Each step of the two samplers is a
+``sampler/step`` span (``utils/profiling.py::span``): ``model_fn`` and
+the update.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .gaussian import (DenoiseFn, ModelFn, Schedule, _gather, mean_flat,
                        predict_xstart_from_eps, q_mean_variance,
                        q_posterior_mean_variance, q_sample)
 from .losses import continuous_gaussian_log_likelihood, normal_kl
+from ..utils.profiling import span
 
 
 def wrap_respaced(model_fn: ModelFn,
@@ -55,13 +58,15 @@ def ddpm_sample_loop(
     n = noise.shape[0]
     x = noise
     for i in range(sched.num_timesteps - 1, -1, -1):
-        t = torch.full((n,), i, dtype=torch.int64, device=x.device)
-        out = p_mean_variance(sched, model_fn, x, t, denoise_fn=denoise_fn)
-        z = (step_noise(i) if step_noise is not None else
-             torch.randn(x.shape, generator=generator, device=x.device,
-                         dtype=x.dtype))
-        keep_noise = 1.0 if i != 0 else 0.0
-        x = out["mean"] + keep_noise * torch.exp(0.5 * out["log_variance"]) * z
+        with span("sampler/step"):
+            t = torch.full((n,), i, dtype=torch.int64, device=x.device)
+            out = p_mean_variance(sched, model_fn, x, t, denoise_fn=denoise_fn)
+            z = (step_noise(i) if step_noise is not None else
+                 torch.randn(x.shape, generator=generator, device=x.device,
+                             dtype=x.dtype))
+            keep_noise = 1.0 if i != 0 else 0.0
+            x = (out["mean"]
+                 + keep_noise * torch.exp(0.5 * out["log_variance"]) * z)
     return x
 
 
@@ -85,29 +90,31 @@ def ddim_sample_loop(
     n = noise.shape[0]
     x = noise
     for i in range(sched.num_timesteps - 1, -1, -1):
-        t = torch.full((n,), i, dtype=torch.int64, device=x.device)
-        eps = model_fn(x, t)
-        pred_x_start = predict_xstart_from_eps(sched, x, t, eps)
-        if denoise_fn is not None:
-            pred_x_start = denoise_fn(pred_x_start)
-            # re-derive eps from the blended x0_hat (identical to the model
-            # eps without a blend, so skipped then)
-            eps = predict_eps_from_xstart(sched, x, t, pred_x_start)
-        a_prev = _gather(sched.alphas_cumprod_prev, t, x.ndim)
-        if eta == 0.0:
-            x = pred_x_start * torch.sqrt(a_prev) + torch.sqrt(1.0 - a_prev) * eps
-            continue
-        a_bar = _gather(sched.alphas_cumprod, t, x.ndim)
-        sigma = (eta * torch.sqrt((1.0 - a_prev) / (1.0 - a_bar))
-                 * torch.sqrt(1.0 - a_bar / a_prev))
-        mean_pred = (pred_x_start * torch.sqrt(a_prev)
-                     + torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0))
-                     * eps)
-        z = (step_noise(i) if step_noise is not None else
-             torch.randn(x.shape, generator=generator, device=x.device,
-                         dtype=x.dtype))
-        keep_noise = 1.0 if i != 0 else 0.0
-        x = mean_pred + keep_noise * sigma * z
+        with span("sampler/step"):
+            t = torch.full((n,), i, dtype=torch.int64, device=x.device)
+            eps = model_fn(x, t)
+            pred_x_start = predict_xstart_from_eps(sched, x, t, eps)
+            if denoise_fn is not None:
+                pred_x_start = denoise_fn(pred_x_start)
+                # re-derive eps from the blended x0_hat (identical to the
+                # model eps without a blend, so skipped then)
+                eps = predict_eps_from_xstart(sched, x, t, pred_x_start)
+            a_prev = _gather(sched.alphas_cumprod_prev, t, x.ndim)
+            if eta == 0.0:
+                x = (pred_x_start * torch.sqrt(a_prev)
+                     + torch.sqrt(1.0 - a_prev) * eps)
+                continue
+            a_bar = _gather(sched.alphas_cumprod, t, x.ndim)
+            sigma = (eta * torch.sqrt((1.0 - a_prev) / (1.0 - a_bar))
+                     * torch.sqrt(1.0 - a_bar / a_prev))
+            mean_pred = (pred_x_start * torch.sqrt(a_prev)
+                         + torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2,
+                                                  min=0.0)) * eps)
+            z = (step_noise(i) if step_noise is not None else
+                 torch.randn(x.shape, generator=generator, device=x.device,
+                             dtype=x.dtype))
+            keep_noise = 1.0 if i != 0 else 0.0
+            x = mean_pred + keep_noise * sigma * z
     return x
 
 

@@ -57,6 +57,17 @@ dtypes to that scan.  Whatever the compute dtype, accumulation,
 LayerNorm, softmax, the residual stream and the diffusion state stay
 float32 (see ``ops/fused_sampler.py``).
 
+Phases are spans (``utils/profiling.py::span``: ``torch.profiler`` ranges
+while a profiler records, else nothing): ``generate/sample`` around each
+``generate_sample``, holding ``generate/inputs`` (arguments to device
+tensors, the noise, the ramp, the DDPM seed), ``generate/memory`` (the
+speech memory), on the fused path ``generate/prepare`` (pack, padded x_T,
+blend tensors, ``x_add``) and ``fused/launch`` (``ops/fused_sampler.py``),
+on the scan path a ``sampler/step`` a step; ``generate/sequence`` around
+``generate_sequence``, holding a ``generate/window`` a window (with
+``generate/to_host``: the wait for its poses and their copy to the host)
+and a ``generate/stitch`` a batch.
+
 Randomness: initial noise and, for DDPM, the per-step noise come from the
 caller's ``torch.Generator``.  The fused DDPM path draws one seed from it
 and the kernel derives every step's noise from that seed
@@ -83,6 +94,7 @@ from ..ops.fused_sampler import (ddim_coefficients, ddpm_coefficients,
                                  fused_ddim_sample, pack_oneway_denoiser)
 from ..parallel.mesh import Mesh, replicate, split_batch
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 def window_plan(wav_len: int, wav_sr: int, pose_fps: int,
@@ -234,12 +246,13 @@ class Generator:
     def _memory_rows(self, wavs: torch.Tensor) -> torch.Tensor:
         """(N, 1 + m_s, D) f32: a zero token slot, then
         emb_mem(speech) + pe[1:]."""
-        speech = self.model.encode_memory(wavs).float()
-        emm = self.model.pose_decoder.emb_mem
-        m_s = speech.shape[1]
-        rows = speech @ emm.weight.t() + emm.bias + self._pe[1:m_s + 1]
-        slot = torch.zeros_like(rows[:, :1])
-        return torch.cat([slot, rows], dim=1).float()
+        with span("generate/memory"):
+            speech = self.model.encode_memory(wavs).float()
+            emm = self.model.pose_decoder.emb_mem
+            m_s = speech.shape[1]
+            rows = speech @ emm.weight.t() + emm.bias + self._pe[1:m_s + 1]
+            slot = torch.zeros_like(rows[:, :1])
+            return torch.cat([slot, rows], dim=1).float()
 
     def _inpaint_model(self) -> bool:
         return self.model.cfg.model_type == "inpaint"
@@ -261,39 +274,43 @@ class Generator:
                 f"{self.model.cfg.decoder_type!r}, use_fused={self.use_fused}): "
                 "it samples with the scan sampler")
         cfg = self.model.cfg
-        key = (pose_dim, pose_window_len)
-        if self._packed is None or self._packed_key != key:
-            self._packed = pack_oneway_denoiser(
-                self.model, pose_dim, pose_window_len,
-                weight_dtype=self.fused_dtype or torch.bfloat16)
-            self._packed_key = key
-            self._replicas = {}
-        n = noise.shape[0]
-        dp_pad = self._packed.w_embx.shape[0]
-        mesh = self.mesh if mesh is None else mesh
-        shards = 1 if mesh is None else mesh.shape["data"]
-        n_local = n // shards if n % shards == 0 else n
-        compute_dtype = self.fused_dtype or (
-            torch.float32 if math.gcd(n_local, 8) <= 2 else torch.bfloat16)
+        mem_rows = self._memory_rows(wavs)
+        with span("generate/prepare"):
+            key = (pose_dim, pose_window_len)
+            if self._packed is None or self._packed_key != key:
+                self._packed = pack_oneway_denoiser(
+                    self.model, pose_dim, pose_window_len,
+                    weight_dtype=self.fused_dtype or torch.bfloat16)
+                self._packed_key = key
+                self._replicas = {}
+            n = noise.shape[0]
+            dp_pad = self._packed.w_embx.shape[0]
+            mesh = self.mesh if mesh is None else mesh
+            shards = 1 if mesh is None else mesh.shape["data"]
+            n_local = n // shards if n % shards == 0 else n
+            compute_dtype = self.fused_dtype or (
+                torch.float32 if math.gcd(n_local, 8) <= 2 else torch.bfloat16)
 
-        def embed(val, fill=0.0):
-            out = torch.full((n, pose_window_len, dp_pad), fill,
-                             dtype=torch.float32, device=self.device)
-            out[:, :, :pose_dim] = val
-            return out
+            def embed(val, fill=0.0):
+                out = torch.full((n, pose_window_len, dp_pad), fill,
+                                 dtype=torch.float32, device=self.device)
+                out[:, :, :pose_dim] = val
+                return out
 
-        blend_a = blend_b = x_add = None
-        if ip is not None:
-            tf = 0.0 if ramp is None else ramp
-            blend_a = embed((1.0 - tf) * im * ip)
-            blend_b = embed((tf * im + (1.0 - im)).expand(ip.shape), fill=1.0)
-        if self._inpaint_model():
-            if ip is None or im is None:
-                raise ValueError("inpaint model requires inpaint tensors")
-            # timestep-independent, so computed once per call; pad lanes 0
-            x_add = embed(self.model.inpaint_projection(ip, im).float())
-        return dict(packed=self._packed, x_T=embed(noise),
-                    mem_rows=self._memory_rows(wavs), tmap=self._tmap,
+            blend_a = blend_b = x_add = None
+            if ip is not None:
+                tf = 0.0 if ramp is None else ramp
+                blend_a = embed((1.0 - tf) * im * ip)
+                blend_b = embed((tf * im + (1.0 - im)).expand(ip.shape),
+                                fill=1.0)
+            if self._inpaint_model():
+                if ip is None or im is None:
+                    raise ValueError("inpaint model requires inpaint tensors")
+                # timestep-independent, so computed once per call; pad lanes 0
+                x_add = embed(self.model.inpaint_projection(ip, im).float())
+            x_T = embed(noise)
+        return dict(packed=self._packed, x_T=x_T,
+                    mem_rows=mem_rows, tmap=self._tmap,
                     coefs=self._coefs[sample_alg], blend_a=blend_a,
                     blend_b=blend_b, n_layers=cfg.n_layers, heads=cfg.heads,
                     num_steps=self.num_steps, compute_dtype=compute_dtype,
@@ -339,7 +356,9 @@ class Generator:
 
     def _scan_sample(self, wavs, noise, ip, im, ramp, sample_alg, generator,
                      z_fn):
-        model_fn = self._model_fn(self.model.encode_memory(wavs), ip, im)
+        with span("generate/memory"):
+            memory = self.model.encode_memory(wavs)
+        model_fn = self._model_fn(memory, ip, im)
         denoise_fn = None
         if ip is not None:
             tf = 0.0 if ramp is None else ramp
@@ -388,48 +407,52 @@ class Generator:
         path every step's z, or ``z_fn(step)`` when given (scan path only;
         tests inject the JAX package's draws).  ``mesh`` (the Generator's
         by default) splits the fused path's batch over its devices."""
-        if sample_alg not in ("ddim", "ddpm"):
-            raise ValueError(f"unknown sample_alg {sample_alg!r}")
-        if z_fn is not None and self.fused:
-            raise ValueError("z_fn feeds the scan sampler only "
-                             "(use_fused=False)")
-        wavs = self._wavs(wavs)
-        if wavs.ndim != 2:
-            raise ValueError(f"wavs must be (N, T_wav), got {tuple(wavs.shape)}")
-        n = wavs.shape[0]
-        ip = im = ramp = None
-        if inpaint_poses is not None:
-            if inpaint_masks is None:
-                raise ValueError("Provide inpaint_masks.")
-            ip, im = self._tensor(inpaint_poses), self._tensor(inpaint_masks)
-            if trans_factor is not None:
-                if pose_seed_len is None:
-                    raise ValueError("trans_factor needs pose_seed_len")
-                ramp = self._tensor(make_trans_ramp(
-                    trans_factor, pose_seed_len, pose_window_len))
-        if self._inpaint_model() and ip is None:
-            raise ValueError("inpaint model requires inpaint tensors")
-        gdev = generator.device if generator is not None else self.device
-        if noise is None:
-            noise = torch.randn((n, pose_window_len, pose_dim),
-                                generator=generator, device=gdev)
-        noise = self._tensor(noise)
-        if self.fused:
-            seed = 0
-            if sample_alg == "ddpm":
-                # stays a tensor: no host round trip on the dispatch path
-                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                     device=gdev, dtype=torch.int64
-                                     ).to(self.device)
-            out = self._fused_sample(
-                wavs, pose_dim, pose_window_len, noise, ip, im, ramp,
-                sample_alg, seed,
-                self.mesh if mesh is None else check_data_mesh(mesh))
-            self.last_sample_path = "fused"
-            return out
-        out = self._scan_sample(wavs, noise, ip, im, ramp, sample_alg,
-                                generator, z_fn)
-        self.last_sample_path = "scan"
+        with span("generate/sample"):
+            if sample_alg not in ("ddim", "ddpm"):
+                raise ValueError(f"unknown sample_alg {sample_alg!r}")
+            if z_fn is not None and self.fused:
+                raise ValueError("z_fn feeds the scan sampler only "
+                                 "(use_fused=False)")
+            with span("generate/inputs"):
+                wavs = self._wavs(wavs)
+                if wavs.ndim != 2:
+                    raise ValueError(f"wavs must be (N, T_wav), got "
+                                     f"{tuple(wavs.shape)}")
+                n = wavs.shape[0]
+                ip = im = ramp = None
+                if inpaint_poses is not None:
+                    if inpaint_masks is None:
+                        raise ValueError("Provide inpaint_masks.")
+                    ip = self._tensor(inpaint_poses)
+                    im = self._tensor(inpaint_masks)
+                    if trans_factor is not None:
+                        if pose_seed_len is None:
+                            raise ValueError("trans_factor needs pose_seed_len")
+                        ramp = self._tensor(make_trans_ramp(
+                            trans_factor, pose_seed_len, pose_window_len))
+                if self._inpaint_model() and ip is None:
+                    raise ValueError("inpaint model requires inpaint tensors")
+                gdev = generator.device if generator is not None else self.device
+                if noise is None:
+                    noise = torch.randn((n, pose_window_len, pose_dim),
+                                        generator=generator, device=gdev)
+                noise = self._tensor(noise)
+                seed = 0
+                if self.fused and sample_alg == "ddpm":
+                    # stays a tensor: no host round trip on the dispatch path
+                    seed = torch.randint(0, 2 ** 31 - 1, (1,),
+                                         generator=generator, device=gdev,
+                                         dtype=torch.int64).to(self.device)
+            if self.fused:
+                out = self._fused_sample(
+                    wavs, pose_dim, pose_window_len, noise, ip, im, ramp,
+                    sample_alg, seed,
+                    self.mesh if mesh is None else check_data_mesh(mesh))
+                self.last_sample_path = "fused"
+            else:
+                out = self._scan_sample(wavs, noise, ip, im, ramp, sample_alg,
+                                        generator, z_fn)
+                self.last_sample_path = "scan"
         return out
 
     # ------------------------------------------------------------------
@@ -454,57 +477,65 @@ class Generator:
         with seed-pose continuation.  ``noise_fn(batch_start, window)``,
         when given, supplies each window's initial noise (N_b, T, C).
         ``mesh`` as for ``generate_sample``."""
-        wav_seqs = self._wavs(wav_seqs).cpu().numpy()
-        if wav_seqs.ndim != 2:
-            raise ValueError("wav_seqs must be (N, T_wav)")
-        n_seq, wav_seq_len = wav_seqs.shape
-        seq_len, num_div = window_plan(wav_seq_len, wav_sr, pose_fps,
-                                       pose_window_len, pose_seed_len)
-        if num_div == 0:
-            return np.zeros((n_seq, 0, pose_dim), np.float32)
-        stride = pose_window_len - pose_seed_len
-        wav_window_len = int(wav_sr * pose_window_len / pose_fps)
+        with span("generate/sequence"):
+            wav_seqs = self._wavs(wav_seqs).cpu().numpy()
+            if wav_seqs.ndim != 2:
+                raise ValueError("wav_seqs must be (N, T_wav)")
+            n_seq, wav_seq_len = wav_seqs.shape
+            seq_len, num_div = window_plan(wav_seq_len, wav_sr, pose_fps,
+                                           pose_window_len, pose_seed_len)
+            if num_div == 0:
+                return np.zeros((n_seq, 0, pose_dim), np.float32)
+            stride = pose_window_len - pose_seed_len
+            wav_window_len = int(wav_sr * pose_window_len / pose_fps)
 
-        outs = []
-        for b0 in range(0, n_seq, batch_size):
-            wav_seq = wav_seqs[b0:b0 + batch_size]
-            nb = len(wav_seq)
-            mask = np.zeros((nb, pose_window_len, 1), np.float32)
-            mask[:, :pose_seed_len] = 1.0
-            samples = []
-            prev_tail = (None if init_poses is None else
-                         np.asarray(init_poses[b0:b0 + batch_size], np.float32))
-            pose_start = 0
-            for d in range(num_div):
-                wav_start = int(pose_start / pose_fps * wav_sr)
-                window = wav_seq[:, wav_start:wav_start + wav_window_len]
-                if window.shape[1] < wav_window_len:   # zero-pad last window
-                    window = np.pad(
-                        window, ((0, 0), (0, wav_window_len - window.shape[1])))
-                ip = im = None
-                if prev_tail is not None:
-                    ip = np.zeros((nb, pose_window_len, pose_dim), np.float32)
-                    ip[:, :pose_seed_len] = prev_tail
-                    im = mask
-                sample = self.generate_sample(
-                    window, pose_dim, pose_window_len, generator=generator,
-                    noise=None if noise_fn is None else noise_fn(b0, d),
-                    inpaint_poses=ip, inpaint_masks=im,
-                    sample_alg=sample_alg, trans_factor=trans_factor,
-                    pose_seed_len=pose_seed_len, mesh=mesh).cpu().numpy()
-                samples.append(sample)
-                prev_tail = sample[:, -pose_seed_len:]
-                pose_start += stride
+            outs = []
+            for b0 in range(0, n_seq, batch_size):
+                wav_seq = wav_seqs[b0:b0 + batch_size]
+                nb = len(wav_seq)
+                mask = np.zeros((nb, pose_window_len, 1), np.float32)
+                mask[:, :pose_seed_len] = 1.0
+                samples = []
+                prev_tail = (None if init_poses is None else np.asarray(
+                    init_poses[b0:b0 + batch_size], np.float32))
+                pose_start = 0
+                for d in range(num_div):
+                    with span("generate/window"):
+                        wav_start = int(pose_start / pose_fps * wav_sr)
+                        window = wav_seq[:, wav_start:wav_start + wav_window_len]
+                        if window.shape[1] < wav_window_len:   # zero-pad last
+                            window = np.pad(window, (
+                                (0, 0), (0, wav_window_len - window.shape[1])))
+                        ip = im = None
+                        if prev_tail is not None:
+                            ip = np.zeros((nb, pose_window_len, pose_dim),
+                                          np.float32)
+                            ip[:, :pose_seed_len] = prev_tail
+                            im = mask
+                        sample = self.generate_sample(
+                            window, pose_dim, pose_window_len,
+                            generator=generator,
+                            noise=None if noise_fn is None else noise_fn(b0, d),
+                            inpaint_poses=ip, inpaint_masks=im,
+                            sample_alg=sample_alg, trans_factor=trans_factor,
+                            pose_seed_len=pose_seed_len, mesh=mesh)
+                        with span("generate/to_host"):
+                            sample = sample.cpu().numpy()
+                        samples.append(sample)
+                        prev_tail = sample[:, -pose_seed_len:]
+                        pose_start += stride
 
-            combined = []
-            for i, x in enumerate(samples):
-                if smooth_trans and i > 0:
-                    x = crossfade_head(
-                        x, samples[i - 1][:, -pose_seed_len:], pose_seed_len)
-                combined.append(x[:, :-pose_seed_len]
-                                if i < len(samples) - 1 else x)
-            outs.append(np.concatenate(combined, axis=1)[:, :seq_len])
-        return np.concatenate(outs, axis=0)
+                with span("generate/stitch"):
+                    combined = []
+                    for i, x in enumerate(samples):
+                        if smooth_trans and i > 0:
+                            x = crossfade_head(
+                                x, samples[i - 1][:, -pose_seed_len:],
+                                pose_seed_len)
+                        combined.append(x[:, :-pose_seed_len]
+                                        if i < len(samples) - 1 else x)
+                    outs.append(np.concatenate(combined, axis=1)[:, :seq_len])
+            return np.concatenate(outs, axis=0)
 
     # ------------------------------------------------------------------
     def stream(

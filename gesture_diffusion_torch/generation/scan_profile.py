@@ -2,16 +2,15 @@
 
 Builds a configuration (``configs/tedexp-ours.json`` by default: the
 10-layer cross-attention decoder, which no fused kernel serves) at full
-width with seeded random weights and, for each batch, times the step that
-``ddim_sample_loop`` repeats (one ``denoise`` call on the speech memory and
-the DDIM update):
+width with seeded random weights and, for each batch, runs the program's
+own ``ddim_sample_loop`` over the configuration's schedule respaced to
+``--steps`` steps (the memory encoded once, as ``Generator`` does), once
+to warm up and once under ``torch.profiler``.  From the traced loop:
 
-  * the step's wall time: ``--steps`` steps queued without a synchronise
-    and one at the end;
-  * a ``torch.profiler`` trace of ``--steps`` steps: the kernels launched
-    per step, the device's busy time per step (the sum of kernel times),
-    its idle share of the queued step, and the top kernels and host
-    operators; the full tables go to ``--out``.
+  * the host ms of a step: the mean length of its ``sampler/step`` spans;
+  * the kernels and copies launched and the device's busy ms (the sum of
+    their times), each a step;
+  * the top kernels and host operators; the full tables go to ``--out``.
 
     python3 -m gesture_diffusion_torch.generation.scan_profile
         [--config configs/tedexp-ours.json] [--d-pose 126] [--batch 1 32]
@@ -26,10 +25,11 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
+
+STEP = "sampler/step"
 
 
 def main() -> int:
@@ -45,8 +45,9 @@ def main() -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from ..diffusion.gaussian import _gather, predict_xstart_from_eps
+    from ..diffusion import ddim_sample_loop, make_diffusion
     from ..models import build_all
+    from ..training.step_profile import device_work
     from ..utils import JsonConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -59,45 +60,40 @@ def main() -> int:
     window, fps = cfg.Data.pose_window_len, cfg.Data.pose_fps
     b = build_all(cfg, args.d_pose, device=dev,
                   generator=torch.Generator().manual_seed(0))
-    sched = b.eval_schedule.to(dev)
+    diff = cfg.Model.Diffusion
+    sched, tmap = make_diffusion(diff.noise_schedule, diff.diffusion_steps,
+                                 f"ddim{args.steps}")
+    sched, tmap = sched.to(dev), tmap.to(dev)
     os.makedirs(args.out, exist_ok=True)
     name = os.path.splitext(os.path.basename(args.config))[0]
     rng = np.random.default_rng(0)
     for n in args.batch:
         wav = torch.from_numpy(rng.normal(0, 0.3, (n, int(cfg.Data.wav_sr * window / fps)))
                                .astype(np.float32)).to(dev)
-        x = torch.randn(n, window, args.d_pose, device=dev)
+        noise = torch.randn(n, window, args.d_pose, device=dev)
         with torch.no_grad():
             memory = b.model.encode_memory(wav)
 
-            def step(i):
-                t = torch.full((n,), (sched.num_timesteps - 1 - i) % sched.num_timesteps,
-                               dtype=torch.int64, device=dev)
-                eps = b.model.denoise(x, t, memory)
-                x0 = predict_xstart_from_eps(sched, x, t, eps)
-                a_prev = _gather(sched.alphas_cumprod_prev, t, x.ndim)
-                return x0 * torch.sqrt(a_prev) + torch.sqrt(1.0 - a_prev) * eps
+            def model_fn(x, t):
+                return b.model.denoise(x, t, memory)
 
-            for i in range(3):
-                step(i)
+            def sample():
+                return ddim_sample_loop(sched, model_fn, noise, timestep_map=tmap)
+
+            sample()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(args.steps):
-                step(i)
-            torch.cuda.synchronize()
-            queued = (time.perf_counter() - t0) / args.steps * 1e3
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for i in range(args.steps):
-                    step(i)
+                sample()
                 torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_work(prof)
         busy = sum(e.device_time for e in kernels) / args.steps / 1e3
+        steps = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.name == STEP and e.device_type == torch.autograd.DeviceType.CPU]
         table = prof.key_averages()
-        print(f"[scan-profile] {name}, batch {n}, memory {memory.shape[1]} rows: "
-              f"step {queued:.3f} ms queued; traced: {len(kernels) / args.steps:.0f} "
-              f"kernels a step, the device busy {busy:.3f} ms a step, idle "
-              f"{100 * (1 - busy / queued):.1f}% of the queued step [{smi}]",
+        print(f"[scan-profile] {name}, batch {n}, memory {memory.shape[1]} rows, "
+              f"ddim{args.steps}, traced: the {STEP} span {np.mean(steps) / 1e3:.3f} ms "
+              f"of host a step ({len(steps)} spans), {len(kernels) / args.steps:.0f} "
+              f"kernels a step, the device busy {busy:.3f} ms a step [{smi}]",
               flush=True)
         print(table.table(sort_by="self_cuda_time_total", row_limit=12), flush=True)
         with open(os.path.join(args.out, f"scan_profile_{name}_b{n}.txt"), "w") as f:

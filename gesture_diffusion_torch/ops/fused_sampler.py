@@ -102,6 +102,7 @@ import torch.nn.functional as F
 from ..models.attention import sinusoidal_position_encoding
 from ..models.decoders import LN_EPS
 from ..models.denoiser import timestep_freqs
+from ..utils.profiling import span
 
 # kernel limits (csrc/fused_ddim.cu): one cluster of blocks of NWARPS
 # warps per clip, epilogue strips of 32 columns, at most 4 row tiles of 16
@@ -754,92 +755,96 @@ def _fused_ddim_cuda(packed, x_T, mem_rows, tmap, coefs, blend_a, blend_b,
                      stochastic=False, seed=0, x_add=None, clip_base=0, *,
                      cluster=None):
     """Launch the kernel.  ``cluster`` forces the blocks per clip (tests
-    and ``chip_smoke.py``); by default ``cluster_plan`` picks it."""
+    and ``chip_smoke.py``); by default ``cluster_plan`` picks it.  The
+    whole call is the ``fused/launch`` span."""
     global launches, last_cluster, last_plan
-    if compute_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("the CUDA kernel computes with bfloat16 or float32 "
-                         f"operands (got compute_dtype={compute_dtype})")
-    f32 = compute_dtype == torch.float32
-    dev = x_T.device
-    # float32 compute takes a bf16 or an f32 pack, bfloat16 compute a bf16
-    # one only (the JAX package never builds bf16 compute on f32 weights)
-    wd = packed.w_embx.dtype if f32 else torch.bfloat16
-    for name, w in packed._asdict().items():
-        want = torch.float32 if name in ("pe_x", "pe_m0", "b_out") else wd
-        if w.device != dev or w.dtype != want or not w.is_contiguous():
-            raise ValueError(f"packed.{name} must be a contiguous {want} tensor "
-                             f"on {dev} for compute_dtype {compute_dtype} (got "
-                             f"{w.dtype} on {w.device})")
-    if wd not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the pack's weights must be bfloat16 or float32, "
-                         f"not {wd}")
-    for name, a in (("x_T", x_T), ("mem_rows", mem_rows), ("blend_a", blend_a),
-                    ("blend_b", blend_b), ("x_add", x_add)):
-        if a is not None and (a.device != dev or a.dtype != torch.float32
-                              or not a.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-    # the plan fits at every cluster size or at none (the float32 layout
-    # holds its attention operands in shared memory only where that fits)
-    _kernel_plan(packed, x_T, mem_rows, heads, f32)
-    n, t, dp = x_T.shape
-    d_model = packed.w_emm.shape[0]
-    lib = _library()
-    ffn = packed.ff_w1.shape[2]
-    if cluster is None:
-        cluster = cluster_plan(n, heads, lambda c: max_clusters(
-            lib, c, smem_plan(t, d_model, dp, ffn, f32, c)[0], dev, f32))
-    elif cluster not in CLUSTER_SIZES or heads % cluster:
-        raise ValueError(f"cluster must be one of {CLUSTER_SIZES} and divide "
-                         f"heads ({heads}); got {cluster}")
-    fc, half = _kernel_plan(packed, x_T, mem_rows, heads, f32, cluster)
-    shared = f32 and attention_shared(t, d_model, dp, fc, half, cluster)
-    # the memory rows and the token table are operands: in the compute dtype
-    mem = mem_rows.to(compute_dtype)
-    tok = step_tokens(packed, tmap, compute_dtype).to(compute_dtype).contiguous()
-    # five columns for either sampler; DDIM leaves the last one unread
-    coef5 = torch.zeros((num_steps, 5), dtype=torch.float32, device=dev)
-    ncol = min(coefs.shape[1], 5)
-    coef5[:, :ncol] = coefs[:, :ncol].to(dev, torch.float32)
-    # a seed drawn on the card stays there: the kernel reads it from memory
-    seed_t = torch.as_tensor(seed, dtype=torch.int64).reshape(1).to(dev)
-    out = torch.empty_like(x_T)
-    # zeroed: attention loads the pad rows of the last 16-row tile
-    kv = torch.zeros((n, scratch_elems(mem.shape[1], d_model, n_layers,
-                                       t if f32 and not shared else 0)),
-                     dtype=compute_dtype, device=dev)
-    kt = kernel_weights(packed, compute_dtype)
-    tensors = [x_T, out, mem, tok, coef5, blend_a, blend_b, x_add, kv, seed_t,
-               *(kt[name] for name in _KERNEL_READS)]
-    ptrs = (ctypes.c_void_p * N_PTRS)(
-        *[None if a is None else a.data_ptr() for a in tensors])
-    # the last two: float32 operands, and an f32 pack (its product weights
-    # as three bf16 planes, its other tensors in float32)
-    dims = (ctypes.c_int * N_DIMS)(n, t, mem.shape[1], d_model, dp,
-                                   packed.ff_w1.shape[2], n_layers, heads,
-                                   num_steps, fc, int(half),
-                                   int(bool(stochastic)), cluster,
-                                   int(clip_base), int(f32),
-                                   int(wd == torch.float32))
-    # the launch is asynchronous: the temporaries above (mem, tok, coef5,
-    # seed_t, the scratch) may be freed on return because the caching
-    # allocator only reuses their blocks for work queued after the kernel
-    # on this same stream
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # the launch goes to the tensors' device, whichever is current
-    with _current(dev):
-        rc = lib.fused_ddim_launch(ptrs, N_PTRS, dims, N_DIMS,
-                                   ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"fused_ddim kernel launch failed (clusters of "
-                           f"{cluster} blocks): CUDA error {rc}")
-    launches += 1
-    key = (compute_dtype, wd)
-    launches_by_dtype[key] = launches_by_dtype.get(key, 0) + 1
-    last_cluster = cluster
-    last_plan = dict(cluster=cluster, ff_chunk=fc, half=half,
-                     attention="shared memory" if shared else (
-                         "the global scratch" if f32 else "every replica"))
-    return out
+    with span("fused/launch"):
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError("the CUDA kernel computes with bfloat16 or float32 "
+                             f"operands (got compute_dtype={compute_dtype})")
+        f32 = compute_dtype == torch.float32
+        dev = x_T.device
+        # float32 compute takes a bf16 or an f32 pack, bfloat16 compute a bf16
+        # one only (the JAX package never builds bf16 compute on f32 weights)
+        wd = packed.w_embx.dtype if f32 else torch.bfloat16
+        for name, w in packed._asdict().items():
+            want = torch.float32 if name in ("pe_x", "pe_m0", "b_out") else wd
+            if w.device != dev or w.dtype != want or not w.is_contiguous():
+                raise ValueError(f"packed.{name} must be a contiguous {want} "
+                                 f"tensor on {dev} for compute_dtype "
+                                 f"{compute_dtype} (got {w.dtype} on {w.device})")
+        if wd not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"the pack's weights must be bfloat16 or float32, "
+                             f"not {wd}")
+        for name, a in (("x_T", x_T), ("mem_rows", mem_rows), ("blend_a", blend_a),
+                        ("blend_b", blend_b), ("x_add", x_add)):
+            if a is not None and (a.device != dev or a.dtype != torch.float32
+                                  or not a.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous float32 tensor "
+                                 f"on {dev}")
+        # the plan fits at every cluster size or at none (the float32 layout
+        # holds its attention operands in shared memory only where that fits)
+        _kernel_plan(packed, x_T, mem_rows, heads, f32)
+        n, t, dp = x_T.shape
+        d_model = packed.w_emm.shape[0]
+        lib = _library()
+        ffn = packed.ff_w1.shape[2]
+        if cluster is None:
+            cluster = cluster_plan(n, heads, lambda c: max_clusters(
+                lib, c, smem_plan(t, d_model, dp, ffn, f32, c)[0], dev, f32))
+        elif cluster not in CLUSTER_SIZES or heads % cluster:
+            raise ValueError(f"cluster must be one of {CLUSTER_SIZES} and divide "
+                             f"heads ({heads}); got {cluster}")
+        fc, half = _kernel_plan(packed, x_T, mem_rows, heads, f32, cluster)
+        shared = f32 and attention_shared(t, d_model, dp, fc, half, cluster)
+        # the memory rows and the token table are operands: in the compute dtype
+        mem = mem_rows.to(compute_dtype)
+        tok = (step_tokens(packed, tmap, compute_dtype).to(compute_dtype)
+               .contiguous())
+        # five columns for either sampler; DDIM leaves the last one unread
+        coef5 = torch.zeros((num_steps, 5), dtype=torch.float32, device=dev)
+        ncol = min(coefs.shape[1], 5)
+        coef5[:, :ncol] = coefs[:, :ncol].to(dev, torch.float32)
+        # a seed drawn on the card stays there: the kernel reads it from memory
+        seed_t = torch.as_tensor(seed, dtype=torch.int64).reshape(1).to(dev)
+        out = torch.empty_like(x_T)
+        # zeroed: attention loads the pad rows of the last 16-row tile
+        kv = torch.zeros((n, scratch_elems(mem.shape[1], d_model, n_layers,
+                                           t if f32 and not shared else 0)),
+                         dtype=compute_dtype, device=dev)
+        kt = kernel_weights(packed, compute_dtype)
+        tensors = [x_T, out, mem, tok, coef5, blend_a, blend_b, x_add, kv, seed_t,
+                   *(kt[name] for name in _KERNEL_READS)]
+        ptrs = (ctypes.c_void_p * N_PTRS)(
+            *[None if a is None else a.data_ptr() for a in tensors])
+        # the last two: float32 operands, and an f32 pack (its product weights
+        # as three bf16 planes, its other tensors in float32)
+        dims = (ctypes.c_int * N_DIMS)(n, t, mem.shape[1], d_model, dp,
+                                       packed.ff_w1.shape[2], n_layers, heads,
+                                       num_steps, fc, int(half),
+                                       int(bool(stochastic)), cluster,
+                                       int(clip_base), int(f32),
+                                       int(wd == torch.float32))
+        # the launch is asynchronous: the temporaries above (mem, tok, coef5,
+        # seed_t, the scratch) may be freed on return because the caching
+        # allocator only reuses their blocks for work queued after the kernel
+        # on this same stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the launch goes to the tensors' device, whichever is current
+        with _current(dev):
+            rc = lib.fused_ddim_launch(ptrs, N_PTRS, dims, N_DIMS,
+                                       ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"fused_ddim kernel launch failed (clusters of "
+                               f"{cluster} blocks): CUDA error {rc}")
+        launches += 1
+        key = (compute_dtype, wd)
+        launches_by_dtype[key] = launches_by_dtype.get(key, 0) + 1
+        last_cluster = cluster
+        last_plan = dict(cluster=cluster, ff_chunk=fc, half=half,
+                         attention="shared memory" if shared else (
+                             "the global scratch" if f32 else "every replica"))
+        return out
 
 
 def fused_ddim_sample(

@@ -52,7 +52,6 @@ from typing import Callable, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from ..diffusion.gaussian import Schedule
 from ..diffusion.resample import create_named_schedule_sampler
@@ -65,6 +64,7 @@ from ..parallel.tp import (full_optimizer_state, full_state_dict,
                            is_tensor_parallel, shard_optimizer_state,
                            sharded_parameters)
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.rng import RngStream
 from .checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from .data import ArrayDataset, iter_batches
@@ -187,8 +187,8 @@ def make_train_step(
     device tensors ``pose`` (N, T, C) and ``wav`` (N, T_wav); t, noise and
     the dropout masks come from ``RngStream(seed)`` at ``step`` unless t
     and noise are given.  The parameters' ``.grad`` keep the step's
-    (clipped) gradients until the next step.  Its three phases are
-    ``torch.profiler`` ranges: ``train_step/forward`` (draws, forward and
+    (clipped) gradients until the next step.  Its three phases are spans
+    (``utils/profiling.py::span``): ``train_step/forward`` (draws, forward and
     losses), ``train_step/backward`` and ``train_step/optimizer`` (norm,
     clipping and AdamW).
 
@@ -214,7 +214,7 @@ def make_train_step(
         poses, wav = batch["pose"], batch["wav"]
         dev = poses.device
         n_global, rows = _rows(poses.shape[0])
-        with record_function("train_step/forward"):
+        with span("train_step/forward"):
             if t is None:
                 t = torch.randint(0, sched.num_timesteps, (n_global,),
                                   generator=rngs.torch("train/t", step, dev),
@@ -234,10 +234,10 @@ def make_train_step(
                     sched, lambda x_t, tt: net(x_t, tt, wav, **extra), poses,
                     t, noise, loss_params, weights=weights,
                     with_per_example=with_per_example)
-        with record_function("train_step/backward"):
+        with span("train_step/backward"):
             # under DDP the gradients arrive averaged over the ranks
             losses["loss"].backward()
-        with record_function("train_step/optimizer"):
+        with span("train_step/optimizer"):
             grads = [p.grad for p in params if p.grad is not None]
             grad_norm = global_norm(
                 [p.grad for p in params if p.grad is not None and id(p) not in split],

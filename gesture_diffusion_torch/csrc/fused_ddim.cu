@@ -45,9 +45,13 @@
 // every block's replica through distributed shared memory (or, for q/k/v
 // and the cross queries, into the block that owns the element's head).  A
 // cluster barrier separates a phase from the next one that reads what
-// another block wrote.  Every replica of h is bitwise the same, so a
-// LayerNorm row is normalised by one warp of the cluster, from its own
-// block's replica, and copied like an output.  Attention runs on the
+// another block wrote.  Every replica of h is bitwise the same, so no
+// block needs another's LayerNorm: in the bf16 instantiation a row is
+// normalised by one warp of the cluster, from its own block's replica,
+// and copied like an output; in the float one every block normalises
+// all rows from its own replica into its own operand rows (row_norm),
+// so that no normalised row is copied or waited for: a block barrier,
+// not a cluster one, follows.  Attention runs on the
 // tensor cores too, block r taking heads [r H/C, (r+1) H/C) and one warp
 // per (head, 16-query pass): S = Q K^T into the warp's staging area, an
 // f32 softmax over each row there, P rounded to bf16 in place, then
@@ -137,8 +141,8 @@
 // Numerics (shared with fused_ddim_sample_plain): product operands are
 // rounded to the compute dtype (bf16, or not at all in the float32
 // instantiation, whose products keep float32 accuracy as above), everything else
-// is f32: h, LayerNorm (normalise only, eps 1e-6; its affine is folded
-// into the next projection at pack time), softmax, biases, dconv, the
+// is f32: h, LayerNorm (normalise only, two passes, eps 1e-6; its affine
+// is folded into the next projection at pack time), softmax, biases, dconv, the
 // state x, eps and the noise z.  Accumulation is f32 in both.
 //
 // Noise (stochastic): z for element (clip, row r, lane n) of step s is
@@ -967,6 +971,74 @@ __device__ void layer_norm(const float* h, int rows, int d, T* z, int ldz,
   }
 }
 
+// The float instantiation's LayerNorm: z = normalize(h) for every row, in
+// every block, from the block's own replica (every replica is the same)
+// into its own operand rows; rows >= `rows` of z are left as they are.
+// The mean and rstd are f32 sums over the row, in two passes (eps
+// LN_EPS).  g lanes a row, the most up to 32 that keep all rows in flight
+// at once; a lane sums its float4s in order (odd rows of a quarter-warp
+// start one run of g float4s further, so that its two rows fall on
+// different banks), then a butterfly over the g lanes: a fixed order,
+// with no atomics.  Not inlined: inlined, its temporaries on top of what
+// the step loop keeps live pass the 255 registers a thread has, and
+// ptxas spills values that the products then reload; as a call it takes
+// registers of its own.
+static __device__ __noinline__ void row_norm(const float* h, int rows, int d,
+                                             float* z, int ldz) {
+  int g = 32;
+  while (g > 4 && rows * g > NTHREADS) g >>= 1;
+  const int tid = threadIdx.x, lg = tid & (g - 1), n4 = d / 4;
+  for (int r0 = 0; r0 < rows; r0 += NTHREADS / g) {
+    const int r = r0 + tid / g;
+    const float4* x = reinterpret_cast<const float4*>(h + (size_t)imin(r, rows - 1) * d);
+    const int sh = g < 8 ? (r % (8 / g)) * g : 0;
+    float mu = 0.0f, rs = 1.0f;
+#ifndef FUSED_DDIM_SKIP_LN   // timing-breakdown hook: the statistics skipped
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = lg; i < n4; i += g) {
+      const float4 v = x[i + sh < n4 ? i + sh : i + sh - n4];
+      s.x += v.x;  s.y += v.y;  s.z += v.z;  s.w += v.w;
+    }
+    float t = (s.x + s.y) + (s.z + s.w);
+    for (int o = g >> 1; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    mu = t / d;
+    s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = lg; i < n4; i += g) {
+      const float4 v = x[i + sh < n4 ? i + sh : i + sh - n4];
+      const float ex = v.x - mu, ey = v.y - mu, ez = v.z - mu, ew = v.w - mu;
+      s.x += ex * ex;  s.y += ey * ey;  s.z += ez * ez;  s.w += ew * ew;
+    }
+    t = (s.x + s.y) + (s.z + s.w);
+    for (int o = g >> 1; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    rs = rsqrtf(t / d + LN_EPS);
+#endif
+    if (r >= rows) continue;     // after the shuffles, which every lane joins
+    for (int i = lg; i < n4; i += g) {
+      const int j = i + sh < n4 ? i + sh : i + sh - n4;
+      const float4 v = x[j];
+      reinterpret_cast<float4*>(z + r * ldz)[j] = make_float4(
+          (v.x - mu) * rs, (v.y - mu) * rs, (v.z - mu) * rs, (v.w - mu) * rs);
+    }
+  }
+}
+
+// h's LayerNorm into the operand rows z for the products that read it
+// (bf16: each row normalised once in the cluster and copied into every
+// replica; float: every row in every block), then the barrier before such
+// a product: a cluster barrier where rows crossed blocks, else a block one
+template <bool F32, class T>
+__device__ __forceinline__ void ln_rows(const float* h, int rows, int d, T* z,
+                                        int ldz, int C, int rank) {
+  if constexpr (F32) row_norm(h, rows, d, reinterpret_cast<float*>(z), ldz);
+  else layer_norm(h, rows, d, z, ldz, C, rank);
+}
+
+template <bool F32>
+__device__ __forceinline__ void ln_sync(int C) {
+  if constexpr (F32) __syncthreads();
+  else csync(C);
+}
+
 // o[i, head] = softmax(q_i . K^T * scale) V on the tensor cores, for the
 // heads of this block of the cluster (heads / C of them, from rank *
 // heads / C on), one warp per (head, 16-query pass); o goes to every
@@ -1173,8 +1245,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params<T, W> p)
 
     for (int l = 0; l < p.layers; ++l) {
       // self-attention: merged QKV + dconv -> attention -> out-proj
-      layer_norm(h, T_, D, za, L.lda, C, rank);
-      csync(C);
+      ln_rows<F32>(h, T_, D, za, L.lda, C, rank);
+      ln_sync<F32>(C);
       {
         const bf16* w = p.self_wqkv + NP * l * 3 * dd;
         const W *b = p.self_bqkv + l * 3 * D, *tp = p.self_dconv + l * 9 * D,
@@ -1202,7 +1274,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params<T, W> p)
 
       // cross-attention: q from h; memory rows 0 and 1 of K and V from the
       // tile [token; memory row 1; memory row 2], the rest is in the scratch
-      layer_norm(h, T_, D, za, L.lda, C, rank);
+      ln_rows<F32>(h, T_, D, za, L.lda, C, rank);
       const int mrows = imin(NM, 3);
       // float: the tile shares its area with the FF chunk, so its other
       // rows are cleared (they enter the product, whose rows 2.. are dropped)
@@ -1213,7 +1285,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params<T, W> p)
                             : r < mrows ? mg[r * D + c]
                                         : to_op<T>(0.0f);
       }
-      csync(C);
+      // float: a block barrier (the tile and the normalised rows are the
+      // block's own; the cross queries other blocks now write into this
+      // one lie beside the tile, or in the global scratch)
+      ln_sync<F32>(C);
       T* kv = kvs + l * kv_layer;
       {
         const bf16* w = p.cross_wq + NP * l * dd;
@@ -1245,8 +1320,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params<T, W> p)
       csync(C);
 
       // squared-ReLU FF in hidden chunks of FC
-      layer_norm(h, T_, D, za, L.lda, C, rank);
-      csync(C);
+      ln_rows<F32>(h, T_, D, za, L.lda, C, rank);
+      ln_sync<F32>(C);
       for (int c0 = 0; c0 < F; c0 += FC) {
         matmul<T, NP>(cx, za, L.lda, L.mtx,
                       p.ff_w1 + NP * ((size_t)l * F + c0) * D, D, D, FC,
@@ -1259,8 +1334,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fused_ddim_kernel(Params<T, W> p)
       }
     }
 
-    layer_norm(h, T_, D, za, L.lda, C, rank);
-    csync(C);
+    ln_rows<F32>(h, T_, D, za, L.lda, C, rank);
+    ln_sync<F32>(C);
     const float* cf = p.coefs + (size_t)s * 5;
     matmul<T, NP>(cx, za, L.lda, L.mtx, p.w_out, D, D, DP,
                   EpiUpdate{xs, p.b_out, ba, bb, cf[0], cf[1], cf[2], cf[3], cf[4],

@@ -580,6 +580,22 @@ def smem_plan(t: int, d_model: int, dp_pad: int, ffn: int, f32: bool = False,
     return smem_bytes(t, d_model, dp_pad, fc, half, f32, cluster), fc, half
 
 
+def cluster_barriers(n_layers: int, ffn: int, ff_chunk: int, cluster: int,
+                     ln_local: bool) -> int:
+    """Cluster barriers of one denoiser step on clusters of ``cluster``
+    blocks (none on one block, whose barriers are the block's own): after
+    emb_x and after the update; in each layer after the QKV product, each
+    attention, each out-projection, the cross queries, and FF1 and FF2 of
+    each hidden chunk; and, unless every block normalises all of h's rows
+    itself (``ln_local``: the float32 instantiation), after each of the
+    3 L + 1 LayerNorms, whose rows cross blocks.  Mirrors the step loop of
+    ``csrc/fused_ddim.cu``."""
+    if cluster == 1:
+        return 0
+    n = 2 + n_layers * (6 + 2 * (ffn // ff_chunk))
+    return n if ln_local else n + 3 * n_layers + 1
+
+
 def cluster_plan(n: int, heads: int, max_clusters) -> int:
     """Blocks per clip for n clips: the largest C of 8, 4, 2 that divides
     ``heads`` (a block owns whole heads) and for which all n clusters run at

@@ -428,6 +428,61 @@ def test_f32_kernel_matches_plain(card, weights, n, variant, cluster):
         assert _rel(bf, ref) > 10 * _rel(k, ref)
 
 
+# Every block of the float32 instantiation normalises all of h's rows
+# itself: (window, memory rows, batch, x0 blend, DDPM, x_add, emb_x bias
+# shift).  Windows 34 (pad rows in the last row tile), 40 and 64 (four
+# whole tiles); the shift gives the residual stream a row mean far above
+# its spread, which a one-pass variance E[x^2] - E[x]^2 loses to
+# cancellation: with one the kernel read 1.4e-3 to 2.1e-3 here at shift
+# 300, but 9.5e-6 to 1.7e-5 at 30, under F32_BAR; the kernel's two passes
+# read 9.4e-6 to 1.3e-5 at 300.
+LN_CASES = {"ddim-t40-m32": (40, 32, 1, True, False, False, 0.0),
+           "ddpm-t34-m92": (34, 92, 1, True, True, False, 0.0),
+           "ddpm-xadd-t64-m92": (64, 92, 3, True, True, True, 0.0),
+           "ddim-xadd-t34-m32": (34, 32, 2, False, False, True, 0.0),
+           "ddim-mean300-t40-m32": (40, 32, 1, True, False, False, 300.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LN_CASES))
+@pytest.mark.parametrize("weights", [torch.bfloat16, torch.float32])
+def test_f32_local_layer_norm_matches_plain(card, weights, case):
+    """The float32 instantiation at ddim50 on either pack, at every forced
+    cluster size (the attention operands in the global scratch at C = 1,
+    in shared memory above), within F32_BAR of the plain version; and the
+    noise of one DDPM step, z, bit-equal across the sizes."""
+    t, n_mem, n, blend, stochastic, x_add, shift = LN_CASES[case]
+    p = fs.pack_oneway_denoiser(card, D_POSE, t, weight_dtype=weights)
+    if shift:
+        p = p._replace(b_embx=p.b_embx + shift)
+    sched, tmap = make_diffusion("linear", 1000, "ddim50")
+    x, mem, a, b, xa = _inputs(n, t, n_mem, blend, seed=13 * t + n_mem,
+                               x_add=True)
+    coefs = (fs.ddpm_coefficients(sched) if stochastic
+             else fs.ddim_coefficients(sched)).cuda()
+    args = dict(packed=p, x_T=x, mem_rows=mem, tmap=tmap.cuda(), coefs=coefs,
+                blend_a=a, blend_b=b, n_layers=N_LAYERS, heads=8,
+                num_steps=sched.num_timesteps, compute_dtype=torch.float32,
+                stochastic=stochastic, seed=torch.tensor([95], device="cuda"),
+                x_add=xa if x_add else None)
+    ref = fs.fused_ddim_sample_plain(**args)
+    assert torch.isfinite(ref).all()
+    for c in fs.CLUSTER_SIZES:
+        k = fs._fused_ddim_cuda(**args, cluster=c)
+        torch.cuda.synchronize()
+        assert fs.last_cluster == c
+        assert torch.isfinite(k).all() and _rel(k, ref) < F32_BAR, (
+            c, fs.last_plan, _rel(k, ref))
+    if stochastic:
+        one = dict(args, tmap=torch.tensor([0], device="cuda"), num_steps=1,
+                   coefs=torch.tensor([[0.0, 0.0, 0.0, 0.0, 1.0]], device="cuda"),
+                   blend_a=None, blend_b=None)
+        zs = [fs._fused_ddim_cuda(**one, cluster=c) for c in fs.CLUSTER_SIZES]
+        assert all(torch.equal(z, zs[0]) for z in zs)
+        ref_z = fs.fused_noise(95, 0, n, t, 128, device="cuda")
+        assert float((zs[0] - ref_z).abs().max()) < 1e-5
+
+
 def _train_case(model_type, dtype):
     """A small model, its batch, t and noise, all drawn on the CPU."""
     from gesture_diffusion_torch.training import make_adamw

@@ -185,6 +185,24 @@ def test_flagship_attention_placement():
     assert fs.smem_bytes(48, 256, 128, 512, False, True, 8) > fs.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_cluster_barriers_a_step(c):
+    """Every block of the float32 instantiation normalises all of h's rows
+    itself, so no LayerNorm waits on a cluster barrier: 42 a step at the
+    flagship (4 layers, FF chunk 512) against the bf16 instantiation's 47
+    (FF chunk 1024, every LayerNorm's rows exchanged), and 55 had the
+    float32 plan's two chunks exchanged them; on one block, none."""
+    fc32 = fs.smem_plan(40, 256, 128, 1024, True, c)[1]
+    fc16 = fs.smem_plan(40, 256, 128, 1024, False, c)[1]
+    assert (fc32, fc16) == (512, 1024)
+    many = c > 1
+    assert fs.cluster_barriers(4, 1024, fc32, c, True) == 42 * many
+    assert fs.cluster_barriers(4, 1024, fc16, c, False) == 47 * many
+    assert fs.cluster_barriers(4, 1024, fc32, c, False) == 55 * many
+    # FF chunk 256: two more hidden chunks a layer, four more barriers
+    assert fs.cluster_barriers(4, 1024, 256, c, True) == (42 + 16) * many
+
+
 @pytest.fixture(scope="module")
 def model():
     m = GestureDenoiser(DenoiserConfig(d_pose=12, n_layers=2))

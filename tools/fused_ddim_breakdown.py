@@ -14,8 +14,11 @@ default at one or two clips; f32: ``fused_dtype=float32``).  It prints
 device microseconds per step (CUDA events) for batches 1 and 64, each at
 the cluster size the wrapper plans for it (``cluster_plan``: 8 at batch
 1, 2 at batch 64 on an H100) or at each size that ``--cluster`` forces,
-and names the size, the FF chunk, the staging and (float32) where the
-attention operands live on every line.  A skipped build computes
+and names the size, the FF chunk, the staging, (float32) where the
+attention operands live and the cluster barriers a step on every line.
+``--variant noln=-DFUSED_DDIM_SKIP_LN`` prices LayerNorm: the bf16
+instantiation skips its rows, the float32 one its statistics (its rows
+are written with mean 0 and rstd 1).  A skipped build computes
 garbage; only its time is read.
 
     python3 tools/fused_ddim_breakdown.py [--steps 200] [--n-mem 32 92]
@@ -62,6 +65,7 @@ VARIANTS = (("all", ()), ("no_attn", ("-DFUSED_DDIM_SKIP_ATTN",)),
             ("fixed_a", ("-DFUSED_DDIM_FIXED_A",)),
             ("fixed_b", ("-DFUSED_DDIM_FIXED_B",)))
 KERNEL = os.path.join("gesture_diffusion_torch", "csrc", "fused_ddim.cu")
+LAYERS, FFN = 4, 1024          # beat-ours' decoder
 WRAPPER = os.path.join("gesture_diffusion_torch", "ops", "fused_sampler.py")
 
 
@@ -124,14 +128,26 @@ def forced_chunk(mod, fc: int):
     return fixed
 
 
+def barriers(mod, plan, f32: bool) -> int:
+    """Cluster barriers a step of the last launch.  A tree whose wrapper
+    has no ``cluster_barriers`` is one from before the float32
+    instantiation normalised every row in every block: every LayerNorm's
+    rows cross blocks there."""
+    local = f32 and hasattr(mod, "cluster_barriers")
+    return fs.cluster_barriers(LAYERS, FFN, plan["ff_chunk"], plan["cluster"],
+                               local)
+
+
 def describe(mod, f32: bool) -> str:
-    """The last launch's plan, as far as the wrapper records it."""
+    """The last launch's plan, as far as the wrapper records it, and its
+    cluster barriers a step."""
     plan = getattr(mod, "last_plan", None)
     if plan is None:
         return f"cluster {mod.last_cluster}"
     return (f"cluster {plan['cluster']}, FF chunk {plan['ff_chunk']}, "
             f"{'half' if plan['half'] else 'full'} strips"
-            + (f", attention operands in {plan['attention']}" if f32 else ""))
+            + (f", attention operands in {plan['attention']}" if f32 else "")
+            + f", {barriers(mod, plan, f32)} cluster barriers a step")
 
 
 def main() -> int:
@@ -200,7 +216,7 @@ def main() -> int:
 
                 def run():
                     return mod._fused_ddim_cuda(packs[weights], x, mem, tm, cf,
-                                                None, None, 4, 8, s, compute,
+                                                None, None, LAYERS, 8, s, compute,
                                                 cluster=cluster)
 
                 try:

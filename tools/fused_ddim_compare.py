@@ -12,16 +12,28 @@ planned cluster size and at every forced one.  A source whose C interface
 takes fewer dimensions than the wrapper passes (one written before a
 dimension was appended, such as ``clip_base``) is handed only its own
 count; the wrapper's extra dimensions must then be at their defaults.
-It prints whether every output is bit-equal, then the device ms (CUDA
-events) of each source at the planned cluster size, timed in turns (old,
-new, new, old), and the card's name and power limit.  NEW defaults to the
+It prints whether every output is bit-equal (where not, the largest
+distance max|new - old| / max|old|), then the device ms (CUDA events) of
+each source at the planned cluster size, timed in turns (old, new, new,
+old), and the card's name and power limit.  NEW defaults to the
 package's ``csrc/fused_ddim.cu``.
+
+    python3 tools/fused_ddim_compare.py OLD.cu [NEW.cu] [--compute bfloat16
+        float32] [--weights bf16 f32] [--sass]
+
+``--compute`` picks the instantiations (bfloat16, the default, on the
+bf16 pack; float32 on each pack of ``--weights``: bf16, the Generator's
+default pack, and f32, ``fused_dtype=float32``).  ``--sass`` also
+builds each source's first build part (the bf16 instantiation and the C
+interface) as an object and prints whether ``cuobjdump -sass`` reads the
+same in both; a difference goes to ``build/compare_sass.diff``.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import difflib
 import os
 import re
 import subprocess
@@ -58,22 +70,34 @@ class _Interface:
         return self._lib.fused_ddim_launch(ptrs, n_ptrs, dims, self._n_dims, stream)
 
 
-def build(sources) -> list:
+def build(sources, sass: bool = False):
+    """The libraries of ``sources`` and, with ``sass``, the SASS text of
+    each source's build part 0; every nvcc started together."""
     out_dir = os.path.join(REPO, "build", "torch_kernels")
     os.makedirs(out_dir, exist_ok=True)
-    jobs = []
+    nvcc = kernel_build._nvcc()
+    jobs, objs = [], []
     for i, src in enumerate(sources):
         out = os.path.join(out_dir, f"compare-{i}.so")
         jobs.append((src, out, subprocess.Popen(
-            [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS[:-2], "-o", out, src])))
-    if any(proc.wait() != 0 for _, _, proc in jobs):
+            [nvcc, *kernel_build.NVCC_FLAGS[:-2], "-o", out, src])))
+        if sass:
+            obj = os.path.join(out_dir, f"compare-{i}.part0.o")
+            flags = [f for f in kernel_build.NVCC_FLAGS[:-2] if f != "-shared"]
+            objs.append((obj, subprocess.Popen(
+                [nvcc, *flags, "-c", "-DKERNEL_BUILD_PART=0", "-o", obj, src])))
+    if any(proc.wait() != 0 for _, _, proc in jobs) or any(
+            proc.wait() != 0 for _, proc in objs):
         raise RuntimeError("nvcc failed")
     libs = []
     for src, out, _ in jobs:
         with open(src) as f:
             n_dims = int(re.search(r"#define N_DIMS (\d+)", f.read()).group(1))
         libs.append(_Interface(fs.bind_library(ctypes.CDLL(out)), n_dims))
-    return libs
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    texts = [subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
+                            text=True, check=True).stdout for obj, _ in objs]
+    return libs, texts
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -88,12 +112,24 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+# (compute dtype, pack weight dtype) of each --compute and --weights
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "bf16": torch.bfloat16, "f32": torch.float32}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=os.path.join(
         REPO, "gesture_diffusion_torch", "csrc", "fused_ddim.cu"))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--compute", nargs="*", default=["bfloat16"],
+                    choices=("bfloat16", "float32"))
+    ap.add_argument("--weights", nargs="*", default=["bf16"],
+                    choices=("bf16", "f32"),
+                    help="packs the float32 instantiation runs on")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the bf16 instantiation's SASS too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -106,10 +142,15 @@ def main() -> int:
     model = build_all(cfg, D_POSE, device=dev,
                       generator=torch.Generator().manual_seed(0)).model
     sched, tmap = make_diffusion("linear", 1000)
-    # the bf16 instantiation at every batch (the default policy computes
-    # batch 1 in float32, which a source before it does not have)
-    gen = Generator(model, sched, tmap, fused_dtype=torch.bfloat16, device=dev)
-    old, new = build([args.old, args.new])
+    runs = [("bfloat16", "bf16")] if "bfloat16" in args.compute else []
+    if "float32" in args.compute:
+        runs += [("float32", w) for w in args.weights]
+    # a Generator per pack, its compute dtype set by each run (the default
+    # policy computes batch 1 in float32, which a source before that
+    # instantiation does not have)
+    gens = {w: Generator(model, sched, tmap, fused_dtype=DTYPES[w], device=dev)
+            for w in dict.fromkeys(w for _, w in runs)}
+    (old, new), texts = build([args.old, args.new], args.sass)
     g = torch.Generator(device=dev).manual_seed(1)
     cases = {}
     for n in (1, 64):
@@ -120,11 +161,15 @@ def main() -> int:
                                              device=dev)
         im = torch.zeros(n, WINDOW, 1, device=dev)
         im[:, :SEED_LEN] = 1.0
-        with torch.no_grad():
-            cases[f"DDIM batch {n}"] = gen.fused_args(wav, D_POSE, WINDOW, noise)
-            cases[f"DDPM x0-blend batch {n}"] = gen.fused_args(
-                wav, D_POSE, WINDOW, noise, ip, im, None, sample_alg="ddpm",
-                seed=torch.tensor([987654321], device=dev))
+        for compute, w in runs:
+            at = dict(compute_dtype=DTYPES[compute])
+            tag = f"{compute} on {w}"
+            with torch.no_grad():
+                cases[f"{tag}, DDIM batch {n}"] = {**gens[w].fused_args(
+                    wav, D_POSE, WINDOW, noise), **at}
+                cases[f"{tag}, DDPM x0-blend batch {n}"] = {**gens[w].fused_args(
+                    wav, D_POSE, WINDOW, noise, ip, im, None, sample_alg="ddpm",
+                    seed=torch.tensor([987654321], device=dev)), **at}
     equal = {}
     for label, kw in cases.items():
         for cluster in (None,) + fs.CLUSTER_SIZES:
@@ -134,9 +179,12 @@ def main() -> int:
                 with torch.no_grad():
                     outs.append(fs._fused_ddim_cuda(**kw, cluster=cluster))
             torch.cuda.synchronize()
-            equal[label, cluster or "planned"] = torch.equal(*outs)
-    for (label, c), same in equal.items():
-        print(f"[compare] {label}, C {c}: bit-equal {same}")
+            equal[label, cluster or "planned"] = (
+                torch.equal(*outs),
+                float((outs[1] - outs[0]).abs().max() / outs[0].abs().max()))
+    for (label, c), (same, dist) in equal.items():
+        print(f"[compare] {label}, C {c}: bit-equal {same}"
+              + ("" if same else f", distance {dist:.3e}"))
     times = {}
     for label, kw in cases.items():
         for tag, lib in (("old", old), ("new", new), ("new", new), ("old", old)):
@@ -150,8 +198,21 @@ def main() -> int:
               f"{' / '.join(f'{x:.3f}' for x in o)} ms, new "
               f"{' / '.join(f'{x:.3f}' for x in w)} ms (turns old, new, new, "
               f"old); new/old {sum(w) / sum(o):.4f} [{smi}]")
-    print(f"[compare] all bit-equal: {all(equal.values())}")
-    return 0 if all(equal.values()) else 1
+    same = all(e for e, _ in equal.values())
+    print(f"[compare] all bit-equal: {same}")
+    if args.sass:
+        sass_same = texts[0] == texts[1]
+        print(f"[compare] bf16 instantiation's SASS the same: {sass_same} "
+              f"({len(texts[0].splitlines())} / {len(texts[1].splitlines())} "
+              "lines)")
+        if not sass_same:
+            with open(os.path.join(REPO, "build", "compare_sass.diff"),
+                      "w") as f:
+                f.writelines(difflib.unified_diff(
+                    texts[0].splitlines(True), texts[1].splitlines(True),
+                    "old", "new"))
+        same = same and sass_same
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

@@ -85,8 +85,8 @@ def refuse_unported(config) -> None:
     decoder = (model.get("Decoder") or {}).get("type")
     if decoder is not None and decoder not in SUPPORTED_DECODERS:
         raise ValueError(
-            f"Unsupported decoder type {decoder}: the JAX factory and the "
-            f"port build {', '.join(SUPPORTED_DECODERS)}")
+            f"Unsupported decoder type {decoder}: the port builds "
+            f"{', '.join(SUPPORTED_DECODERS)}")
     encoder = (model.get("Encoder") or {}).get("type", "ha2g")
     if encoder != "ha2g":
         raise ValueError(f"Unsupported encoder type {encoder}: the JAX "

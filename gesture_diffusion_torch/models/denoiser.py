@@ -2,7 +2,9 @@
 
 Port of ``gesture_diffusion_tpu/models/denoiser.py`` for every decoder
 of the JAX factory (``oneway_cross_attention``, ``cross_attention``,
-``cross_attention_gcn``, ``unet_attention``) and all three model types:
+``cross_attention_gcn``, ``unet_attention``), plus the port's own
+``mmdit`` (SD3-Medium's joint-stream transformer, ``models/mmdit.py``,
+which the JAX package lacks), and all three model types:
 
   * ``encode_memory(wav)`` — timestep-independent speech conditioning, run
     once per clip by the samplers;
@@ -20,9 +22,13 @@ them on channels and blends them with ``blend_layer``; "inpaint" is
 zero (GLIDE-style).  Layout (N, T, C).
 
 The decoder is ``pose_decoder``, under the reference checkpoint's module
-names.  Train mode (``model.train()``) turns on dropout (step encoder,
-inpaint MLP, speech streams, decoder) and the batch statistics of the
-encoder's BatchNorms.  ``encoder_dtype="bfloat16"`` runs the SE-ResNet
+names.  Every decoder is called as ``pose_decoder(x_t, memory)`` with
+memory = [step token ; speech memory]; ``mmdit`` reads row 0 as the
+conditioning vector of its modulations and the rest as its context
+stream, the others attend to all of it.  Train mode (``model.train()``)
+turns on dropout (step encoder, inpaint MLP, speech streams, decoder)
+and the batch statistics of the encoder's BatchNorms.
+``encoder_dtype="bfloat16"`` runs the SE-ResNet
 trunk in bf16 and everything after it in f32: the blend layer and the
 decoder take the speech memory promoted to f32.  ``dtype="bfloat16"``
 (``Train.dtype``) runs the whole model in bf16 as flax does: every
@@ -44,12 +50,13 @@ import torch.nn.functional as F
 from .compute_dtype import Linear, as_torch_dtype
 from .decoders import CrossAttention, OnewayCrossAttention
 from .gcn_decoder import CrossAttentionGCN
+from .mmdit import MMDiT
 from .speech_encoder import HA2GSpeechEncoder
 from .unet_decoder import UNetAttn
 
 MODEL_TYPES = ("default", "s2g_v2", "inpaint")
 DECODER_TYPES = ("oneway_cross_attention", "cross_attention",
-                 "cross_attention_gcn", "unet_attention")
+                 "cross_attention_gcn", "unet_attention", "mmdit")
 
 
 def timestep_freqs(dim: int, max_period: float = 10000.0,
@@ -130,6 +137,8 @@ class GestureDenoiser(nn.Module):
             self.pose_decoder = OnewayCrossAttention(**common)
         elif cfg.decoder_type == "cross_attention":
             self.pose_decoder = CrossAttention(**common)
+        elif cfg.decoder_type == "mmdit":
+            self.pose_decoder = MMDiT(**common)
         elif cfg.decoder_type == "cross_attention_gcn":
             self.pose_decoder = CrossAttentionGCN(
                 graph_layout=cfg.graph_layout,

@@ -2,8 +2,10 @@
 
 Port of ``gesture_diffusion_tpu/models/factory.py`` over the flat config
 schema of ``configs/beat-ours.json`` and ``configs/tedexp-ours.json``, for
-all four decoders of the JAX factory.  ``build_model`` places the model on
-the card unless the caller passes ``device="cpu"``.  The optimizer and its learning-rate
+all four decoders of the JAX factory and the port's ``mmdit``
+(``Decoder`` ``{type, heads, n_layers}``, d_model / heads channels a
+head).  ``build_model`` places the model on the card unless the caller
+passes ``device="cpu"``.  The optimizer and its learning-rate
 schedule are built in ``training`` (``make_optimizer``).
 """
 

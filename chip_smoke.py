@@ -99,6 +99,15 @@ Phases (any failure raises and the script exits non-zero):
      bars); the phase CLI on ``Data.synthetic`` (42 joints in euler, 8/4/4
      samples of 20 s, 6 train steps, the schedule respaced to ddim50) with
      eval's FGD, latent distance and diversity; 0 fused-kernel launches;
+  9b. the float32 MMDiT (``mmdit_paths``, ``[mmdit]`` lines) at the
+     tedexp-mmdit cell's widths (d_model 1536, 24 heads) cut to 3 blocks,
+     at its batch of 16 (544 frame rows, 1648 speech-memory rows, 16
+     modulation rows): ``generate_sample`` on the scan sampler with the
+     split-TF32 GEMM's launches counted from 0 (every block Linear,
+     ``context_embedder`` and ``norm_out.linear`` once a step, q/k/v one
+     launch a stream); every launch of one ``denoise`` call against
+     ``f32x3_linear_plain`` and float64 on its inputs, and timed beside its
+     bound and ``F.linear`` in float32 (``[mmdit-gemm]`` lines);
   10. the GCN and UNet decoders at smoke widths (``decoder_paths``; no
      shipped configuration uses them): one forward, one train step and one
      50-step ``generate_sample`` each, on the card against the CPU;
@@ -152,10 +161,10 @@ Phases (any failure raises and the script exits non-zero):
      beside it (1e-4, TF32 off); the kernel at its shapes;
   17. print the launches of each instantiation over the main paths (each
      must be above 0), the kernels' JSON line (the four variants of the
-     bf16 instantiation, then the float32 one on bf16 and on f32 weights)
-     and, last, the device line.
+     bf16 instantiation, then the float32 one on bf16 and on f32 weights,
+     then the split-TF32 GEMM from phase 9b) and, last, the device line.
 
-    python3 chip_smoke.py --only corpus tedexp decoders mocap zoo multi tp dtype jax-chkpt
+    python3 chip_smoke.py --only corpus tedexp mmdit decoders mocap zoo multi tp dtype jax-chkpt
 
 runs phases 8 to 16 alone (no kernel phases, no result line), to try
 them.
@@ -1535,6 +1544,196 @@ DECODER_SMOKE = {
                             window_len=WINDOW), 256, D_POSE),
 }
 DECODER_BAR = 1e-4       # the card against the CPU, TF32 off, of max |ref|
+
+
+# -- phase 9b: the float32 MMDiT's split-TF32 products -----------------------
+# configs/tedexp-ours.json with the tedexp-mmdit cell's decoder (SD3-Medium's
+# widths: d_model 1536, 24 heads) cut to MMDIT_BLOCKS blocks, the last one
+# context_pre_only, so every Linear shape of the cell runs: at its batch of
+# 16, 34 frames (544 rows), 103 speech-memory rows (1648), the modulation's 16
+MMDIT_BLOCKS, MMDIT_BATCH, MMDIT_RESPACING = 3, 16, "ddim5"
+MMDIT_SHAPES = {(1648, 1536, 1536), (1648, 1536, 4608), (1648, 1536, 6144),
+                (1648, 6144, 1536), (544, 1536, 1536), (544, 1536, 4608),
+                (544, 1536, 6144), (544, 6144, 1536), (16, 1536, 9216),
+                (16, 1536, 3072)}
+# every launch against f32x3_linear_plain on its inputs: F32X3_BAR plus the
+# plain version's own distance from float64 (its float32 sums run on cuBLAS);
+# against float64: F32X3_BAR (float32's own accuracy at these shapes)
+F32X3_BAR = 1.5e-6
+F32X3_SOURCE = "gesture_diffusion_torch/csrc/f32x3_gemm.cu"
+
+
+def gemm_bound_ms(m: int, k: int, n: int) -> tuple:
+    """(ms, "operations" | "bytes"): the least time of the split-TF32
+    product y = x w^T + b, x (m, k), w (n, k): its three TF32 products'
+    operations at the TF32 peak, or the bytes the product needs (x, the
+    float32 weight, the bias and y once each) at HBM's rate."""
+    ops = 3 * 2.0 * m * n * k / H100_TF32_FLOPS * 1e3
+    nbytes = 4.0 * (m * k + n * k + n + m * n) / H100_HBM_BPS * 1e3
+    return (ops, "operations") if ops >= nbytes else (nbytes, "bytes")
+
+
+def rel64(y: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |y - ref| / max |ref| in float64, for a float64 ``ref``."""
+    return float((y.double() - ref).abs().max() / ref.abs().max())
+
+
+def mmdit_paths(smi, dev) -> dict:
+    """Phase 9b: the float32 MMDiT (``models/mmdit.py``) at the
+    tedexp-mmdit cell's widths and shapes (MMDIT_BLOCKS blocks, seeded
+    full-mantissa weights) on the scan sampler, whose block Linears,
+    ``context_embedder`` and ``norm_out.linear`` run the split-TF32 GEMM.
+    ``generate_sample`` at batch MMDIT_BATCH over MMDIT_RESPACING, with
+    ``f32_linear.launches`` set to 0 just before it and read after it: every
+    such Linear once a step, a stream's q, k and v as one launch.  Then one
+    ``denoise`` call with every launch caught: each, grouped or not, against
+    ``f32x3_linear_plain`` and float64 on its inputs (F32X3_BAR), launched
+    again alone (bit-equal) and timed (CUDA events) beside its bound
+    (``gemm_bound_ms``) and ``F.linear`` in float32 (cuBLAS, TF32 off).
+    Returns the kernels line's row: its ms, bound and library ms are sums
+    over that step's launches; ``max_rel_err`` is the largest distance from
+    the plain version and ``bar`` the bar that launch was held to."""
+    import torch.nn.functional as F
+
+    from gesture_diffusion_torch.diffusion import make_diffusion
+    from gesture_diffusion_torch.generation import Generator
+    from gesture_diffusion_torch.models import build_all
+    from gesture_diffusion_torch.ops import f32_linear as fl
+    from gesture_diffusion_torch.ops import fused_sampler as fs
+    from gesture_diffusion_torch.utils import JsonConfig
+
+    cfg = JsonConfig(os.path.join(REPO, "configs", "tedexp-ours.json"))
+    cfg.set("Model.d_model", 1536)
+    cfg.set("Model.Decoder.type", "mmdit")
+    cfg.set("Model.Decoder.heads", 24)
+    cfg.set("Model.Decoder.n_layers", MMDIT_BLOCKS)
+    window, fps, d_pose = cfg.Data.pose_window_len, cfg.Data.pose_fps, 126
+    t0 = time.perf_counter()
+    b = build_all(cfg, d_pose, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    model = b.model
+    ops = [m for m in model.modules() if isinstance(m, fl.F32x3Linear)]
+    log(f"[mmdit] float32 MMDiT at the cell's widths, {MMDIT_BLOCKS} blocks: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"{len(ops)} split-TF32 Linears; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the scan sampler, launches counted from 0 ------------------------------
+    gen = Generator(model, *make_diffusion("linear", 1000, MMDIT_RESPACING),
+                    device=dev)
+    wav = seeded_audio(97, MMDIT_BATCH, window / fps)
+    draw = torch.Generator(device=dev).manual_seed(98)
+    gen.generate_sample(wav, d_pose, window, generator=draw)    # packs, code
+    torch.cuda.synchronize()
+    fs.launches = fl.launches = 0
+    mean_ms, _, out = host_ms(lambda: gen.generate_sample(
+        wav, d_pose, window, generator=draw), reps=1, warmup=0)
+    launched, want = fl.launches, (len(ops) - 4 * MMDIT_BLOCKS) * gen.num_steps
+    log(f"[mmdit] generate_sample batch {MMDIT_BATCH}, {gen.num_steps} steps "
+        f"({MMDIT_RESPACING}): {mean_ms:.1f} ms, last_sample_path="
+        f"{gen.last_sample_path}, split-TF32 launches +{launched} (want "
+        f"{want}: {len(ops)} Linears less 4 a block, q/k/v grouped, x "
+        f"{gen.num_steps} steps), fused-kernel launches +{fs.launches} [{smi}]")
+    if (gen.last_sample_path != "scan" or launched != want or fs.launches
+            or tuple(out.shape) != (MMDIT_BATCH, window, d_pose)
+            or not torch.isfinite(out).all()):
+        raise AssertionError("the float32 MMDiT did not run its products "
+                             "through the split-TF32 GEMM as expected")
+
+    # -- one denoise call, every launch caught ----------------------------------
+    g = torch.Generator(device=dev).manual_seed(99)
+    x_t = torch.randn(MMDIT_BATCH, window, d_pose, device=dev, generator=g)
+    t = torch.randint(0, 1000, (MMDIT_BATCH,), device=dev, generator=g)
+    caught, on_card = [], fl._on_card
+
+    def catch(x, packs, linears):
+        y = on_card(x, packs, linears)
+        caught.append((x.reshape(-1, x.shape[-1]).clone(), linears,
+                       y.reshape(-1, y.shape[-1]).clone()))
+        return y
+
+    fl._on_card = catch
+    try:
+        with torch.no_grad():
+            memory = model.encode_memory(torch.from_numpy(wav).to(dev))
+            model.denoise(x_t, t, memory)
+    finally:
+        fl._on_card = on_card
+    rows, worst = {}, dict(plain=0.0, bar=F32X3_BAR, abs=0.0, f64=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    with torch.no_grad():
+        for x, linears, y in caught:
+            w = torch.cat([lin.weight for lin in linears])
+            bias = torch.cat([lin.bias for lin in linears])
+            (m, k), n = x.shape, w.shape[0]
+            pack = fl.pack_weight(w)
+            plain = fl.f32x3_linear_plain(x, w, bias)
+            ref = x.double() @ w.double().T + bias.double()
+            own, e64 = rel64(plain, ref), rel64(y, ref)
+            e_plain = rel(y, plain)
+            again = fl.f32x3_gemm(x, pack, bias)
+            ms = cuda_ms(lambda: fl.f32x3_gemm(x, pack, bias), reps=10)
+            plain_ms = cuda_ms(lambda: fl.f32x3_linear_plain(x, w, bias), reps=3)
+            library_ms = cuda_ms(lambda: F.linear(x, w, bias), reps=10)
+            bound, by = gemm_bound_ms(m, k, n)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound), ("library_ms", library_ms)):
+                totals[key] += v
+            r = rows.setdefault((m, k, n, len(linears)), dict(
+                count=0, ms=0.0, library_ms=0.0, bound=bound, by=by,
+                plain=0.0, f64=0.0, own=0.0))
+            r["count"] += 1
+            r["ms"] += ms
+            r["library_ms"] += library_ms
+            r["plain"], r["f64"], r["own"] = (max(r["plain"], e_plain),
+                                              max(r["f64"], e64), max(r["own"], own))
+            if e_plain >= worst["plain"]:
+                worst.update(plain=e_plain, bar=F32X3_BAR + own)
+            worst.update(f64=max(worst["f64"], e64),
+                         abs=max(worst["abs"], float((y - plain).abs().max())))
+            if (e_plain > F32X3_BAR + own or e64 > F32X3_BAR
+                    or not torch.equal(again, y)):
+                raise AssertionError(
+                    f"split-TF32 GEMM ({m}, {k}, {n}) x{len(linears)}: against "
+                    f"the plain version {e_plain:.3e} (bar {F32X3_BAR:.1e} + "
+                    f"{own:.3e}), against float64 {e64:.3e} (bar "
+                    f"{F32X3_BAR:.1e}), launched again bit-equal: "
+                    f"{torch.equal(again, y)}")
+    for (m, k, n, grouped), r in sorted(rows.items(), reverse=True):
+        log(f"[mmdit-gemm] ({m}, {k}, {n}) "
+            f"{'grouped q/k/v' if grouped > 1 else 'one Linear'} x{r['count']}: "
+            f"kernel {r['ms'] / r['count']:.4f} ms, bound {r['bound']:.4f} ms "
+            f"({r['by']}), F.linear float32 {r['library_ms'] / r['count']:.4f} "
+            f"ms; against plain {r['plain']:.3e} (bar {F32X3_BAR:.1e} + the "
+            f"plain version's own {r['own']:.3e}), against float64 "
+            f"{r['f64']:.3e} [{smi}]")
+    seen = {(m, k, n) for m, k, n, _ in rows}
+    log(f"[mmdit-gemm] one denoise step, {len(caught)} launches: kernel "
+        f"{totals['ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms, F.linear "
+        f"float32 {totals['library_ms']:.3f} ms, plain {totals['plain_ms']:.3f} "
+        f"ms; worst against plain {worst['plain']:.3e}, against float64 "
+        f"{worst['f64']:.3e} [{smi}]")
+    if len(caught) != want // gen.num_steps or not MMDIT_SHAPES <= seen:
+        raise AssertionError(f"the denoise call launched {len(caught)} products "
+                             f"at {sorted(seen)}, not the cell's shapes "
+                             f"{sorted(MMDIT_SHAPES)}")
+    return {
+        "name": "f32x3_gemm",
+        "route": "cuda",
+        "source": F32X3_SOURCE,
+        "replaces": None,
+        "launches": launched,
+        "max_abs_err": worst["abs"],
+        "max_rel_err": worst["plain"],
+        "bar": worst["bar"],
+        "max_rel_err_float64": worst["f64"],
+        "bar_float64": F32X3_BAR,
+        **totals,
+        "bound_by": "operations or bytes, by launch",
+        "shape": f"the tedexp-mmdit cell's widths, {MMDIT_BLOCKS} blocks, batch "
+                 f"{MMDIT_BATCH}: one denoise step's {len(caught)} launches "
+                 f"(the ms are their sums)",
+    }
 
 
 def decoder_paths(smi, dev) -> dict:
@@ -2976,8 +3175,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", nargs="+",
-                        choices=("corpus", "tedexp", "decoders", "mocap", "zoo",
-                                 "multi", "tp", "dtype", "jax-chkpt"),
+                        choices=("corpus", "tedexp", "mmdit", "decoders", "mocap",
+                                 "zoo", "multi", "tp", "dtype", "jax-chkpt"),
                         help="run only these phases (no kernel phases; "
                         "corpus builds the kernel for its gen) and print no "
                         "result line: for trying a phase")
@@ -3010,8 +3209,9 @@ def main(argv=None) -> int:
             elif name in LATER_PHASES:
                 LATER_PHASES[name](smi, dev, make_check({}, {}))
             else:
-                {"tedexp": tedexp_paths, "decoders": decoder_paths,
-                 "mocap": mocap_paths, "zoo": zoo_paths}[name](smi, dev)
+                {"tedexp": tedexp_paths, "mmdit": mmdit_paths,
+                 "decoders": decoder_paths, "mocap": mocap_paths,
+                 "zoo": zoo_paths}[name](smi, dev)
             log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
         log(f"[done] {time.perf_counter() - t_start:.1f} s (--only: no result line)")
         return 0
@@ -3472,6 +3672,9 @@ def main(argv=None) -> int:
     tedexp_paths(smi, dev)
     log(f"[tedexp] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    gemm_row = mmdit_paths(smi, dev)
+    log(f"[mmdit] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     decoder_paths(smi, dev)
     log(f"[decoders] phase took {time.perf_counter() - t0:.1f} s")
 
@@ -3519,7 +3722,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": f"batch 64, {shape}, 1000 steps",
         "batch1": timings[variant, 1],
-    } for variant, (name, replaces, shape) in what.items()]
+    } for variant, (name, replaces, shape) in what.items()] + [gemm_row]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -90,6 +90,7 @@ from ..diffusion import bpd_loop, ddim_sample_loop, ddpm_sample_loop
 from ..diffusion.gaussian import Schedule
 from ..models.attention import sinusoidal_position_encoding
 from ..models.denoiser import GestureDenoiser
+from ..ops.f32_linear import drop_packs
 from ..ops.fused_sampler import (ddim_coefficients, ddpm_coefficients,
                                  fused_ddim_sample, pack_oneway_denoiser)
 from ..parallel.mesh import Mesh, replicate, split_batch
@@ -218,8 +219,11 @@ class Generator:
         than loading into ``self.model`` directly: the fused path packs the
         weights once and caches the pack, which this drops, and with it
         the kernel-side transposed copies kept for the pack's lifetime
-        (``ops/fused_sampler.py::kernel_weights``)."""
+        (``ops/fused_sampler.py::kernel_weights``), and the split-TF32
+        weight packs of the model's ``F32x3Linear``s
+        (``ops/f32_linear.py::drop_packs``)."""
         self.model.load_state_dict(state_dict)
+        drop_packs(self.model)
         self._packed = None
         self._packed_key = None
         self._replicas = {}

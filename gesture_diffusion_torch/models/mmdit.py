@@ -39,7 +39,14 @@ Module names are diffusers'.  Every parameter is a ``Linear``: the norms
 are ``F.layer_norm`` calls and the positional table a non-persistent
 buffer, so the state dict holds weights and biases alone.  ``dtype`` is
 the compute dtype of every projection (``models/compute_dtype.py``); the
-norms take their statistics in float32 at least.  Spans (``mmdit/block``
+norms take their statistics in float32 at least.  In float32 (``dtype``
+None or float32) the blocks' Linears, ``context_embedder`` and
+``norm_out.linear`` are ``ops/f32_linear.py::F32x3Linear``s, float32
+products on the tensor cores as three TF32 products (each stream's q, k
+and v as one launch, ``F32x3Group``); ``pos_embed.proj`` and
+``proj_out`` (the 126 pose channels in and out, 0.3% of the products;
+pos_embed's input rows are 504 bytes, not the 16-byte multiple TMA
+reads) stay ``F.linear``.  Spans (``mmdit/block``
 around each block; inside it ``mmdit/modulation``,
 ``mmdit/joint_attention`` and ``mmdit/feed_forward``) land under the
 scan sampler's ``sampler/step``.
@@ -53,6 +60,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.f32_linear import F32x3Group, F32x3Linear
 from ..utils.profiling import span
 from .compute_dtype import Linear
 
@@ -68,6 +76,14 @@ def sincos_1d(n: int, d: int) -> torch.Tensor:
                               / (d / 2.0))
     out = torch.arange(n, dtype=torch.float64)[:, None] * omega[None]
     return torch.cat([out.sin(), out.cos()], dim=1).float()
+
+
+def block_linear(d_in: int, d_out: int, dtype: Optional[torch.dtype]):
+    """A Linear of the blocks: the split-TF32 product in float32, else the
+    compute-dtype ``Linear``."""
+    if dtype in (None, torch.float32):
+        return F32x3Linear(d_in, d_out)
+    return Linear(d_in, d_out, compute_dtype=dtype)
 
 
 def norm(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -90,7 +106,7 @@ class AdaLayerNormZero(nn.Module):
     def __init__(self, d: int, dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.linear = Linear(d, 6 * d, compute_dtype=dtype)
+        self.linear = block_linear(d, 6 * d, dtype)
 
     def forward(self, x, silu_c):
         shift, scale, gate, shift2, scale2, gate2 = self.linear(
@@ -105,7 +121,7 @@ class AdaLayerNormContinuous(nn.Module):
     def __init__(self, d: int, dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.linear = Linear(d, 2 * d, compute_dtype=dtype)
+        self.linear = block_linear(d, 2 * d, dtype)
 
     def forward(self, x, silu_c):
         scale, shift = self.linear(silu_c).chunk(2, dim=1)
@@ -115,7 +131,7 @@ class AdaLayerNormContinuous(nn.Module):
 class GELUProj(nn.Module):
     def __init__(self, d_in: int, d_out: int, dtype=None):
         super().__init__()
-        self.proj = Linear(d_in, d_out, compute_dtype=dtype)
+        self.proj = block_linear(d_in, d_out, dtype)
 
     def forward(self, x):
         return F.gelu(self.proj(x), approximate="tanh")
@@ -127,7 +143,7 @@ class FeedForward(nn.Module):
     def __init__(self, d: int, dropout: float = 0.0, dtype=None):
         super().__init__()
         self.net = nn.ModuleList([GELUProj(d, 4 * d, dtype), nn.Dropout(dropout),
-                                  Linear(4 * d, d, compute_dtype=dtype)])
+                                  block_linear(4 * d, d, dtype)])
 
     def forward(self, x):
         for layer in self.net:
@@ -145,10 +161,22 @@ class JointAttention(nn.Module):
         self.heads, self.dropout = heads, dropout
         for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj",
                      "add_v_proj"):
-            setattr(self, name, Linear(d, d, compute_dtype=dtype))
-        self.to_out = nn.ModuleList([Linear(d, d, compute_dtype=dtype)])
+            setattr(self, name, block_linear(d, d, dtype))
+        self.to_out = nn.ModuleList([block_linear(d, d, dtype)])
         self.to_add_out = (None if context_pre_only
-                           else Linear(d, d, compute_dtype=dtype))
+                           else block_linear(d, d, dtype))
+        # in float32 each stream's q, k and v are one launch
+        self.qkv = self.add_qkv = None
+        if isinstance(self.to_q, F32x3Linear):
+            self.qkv = F32x3Group(self.to_q, self.to_k, self.to_v)
+            self.add_qkv = F32x3Group(self.add_q_proj, self.add_k_proj,
+                                      self.add_v_proj)
+
+    def _qkv(self, x, ctx):
+        if self.qkv is not None:
+            return self.qkv(x).chunk(3, dim=-1), self.add_qkv(ctx).chunk(3, dim=-1)
+        return ((self.to_q(x), self.to_k(x), self.to_v(x)),
+                (self.add_q_proj(ctx), self.add_k_proj(ctx), self.add_v_proj(ctx)))
 
     def forward(self, x, ctx):
         n, t_x, d = x.shape
@@ -157,9 +185,8 @@ class JointAttention(nn.Module):
         def heads(a, b):
             return torch.cat([a, b], dim=1).view(n, -1, h, d // h).transpose(1, 2)
 
-        q = heads(self.to_q(x), self.add_q_proj(ctx))
-        k = heads(self.to_k(x), self.add_k_proj(ctx))
-        v = heads(self.to_v(x), self.add_v_proj(ctx))
+        (qx, kx, vx), (qc, kc, vc) = self._qkv(x, ctx)
+        q, k, v = heads(qx, qc), heads(kx, kc), heads(vx, vc)
         o = F.scaled_dot_product_attention(
             q, k, v, dropout_p=self.dropout if self.training else 0.0)
         o = o.transpose(1, 2).reshape(n, -1, d)
@@ -223,7 +250,7 @@ class MMDiT(nn.Module):
         self.pos_embed.proj = Linear(d_x, d_model, compute_dtype=dtype)
         self.register_buffer("pos_table", sincos_1d(MAX_FRAMES, d_model),
                              persistent=False)
-        self.context_embedder = Linear(d_memory, d_model, compute_dtype=dtype)
+        self.context_embedder = block_linear(d_memory, d_model, dtype)
         self.transformer_blocks = nn.ModuleList(
             JointTransformerBlock(d_model, heads, i == n_layers - 1, dropout,
                                   dtype)
